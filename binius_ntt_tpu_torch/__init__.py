@@ -1,0 +1,28 @@
+"""binius_ntt_tpu_torch — the PyTorch/CUDA port of binius_ntt_tpu for Hopper.
+
+The JAX package binius_ntt_tpu is the reference; this package computes the
+same bits with torch for the glue and hand-written CUDA kernels (csrc/,
+built for sm_90a by nvcc at first use) for the hot path.  It never imports
+jax.
+
+Ported so far: the bit-sliced GF(2^128) additive NTT (AdditiveNTT128, the
+fused stage-group path) with its host foundations, and the standalone
+bit-sliced multiply (ntt/cuda_kernels.mul_tiles).
+"""
+
+from .fields import bitsliced, tower_scalar
+from .layout.bitslicing import bitslice_transpose, bitslice_untranspose
+from .ntt.additive_bitsliced import AdditiveNTT128
+from .ntt.nttdata import DataOrder, NTTData
+
+__all__ = [
+    "AdditiveNTT128",
+    "DataOrder",
+    "NTTData",
+    "bitslice_transpose",
+    "bitslice_untranspose",
+    "bitsliced",
+    "tower_scalar",
+]
+
+__version__ = "0.1.0"

@@ -1,0 +1,317 @@
+"""Stage-group kernel of the bit-sliced GF(2^128) additive NTT.
+
+Port of binius_ntt_tpu/ntt/pallas_fused.py.  The host table builders are
+carried over unchanged (``_bit_masks``, ``plan_groups``,
+``make_group_tables``, ``build_tables``); ``stage_group`` launches the CUDA
+kernel of csrc/stage_group.cu, ``stage_group_plain`` is the same function
+in plain torch, and ``apply_fused`` chains the groups.
+
+Twiddles are GF(2)-linear in the butterfly-block indicator, so bit ``i`` of
+a twiddle is the parity of ``indicator & mask[i]``.  The indicator splits
+into a tile part (``blk``, from the tile row) and an instance part (``q``),
+each with a (stages, 128) mask table; the twiddle planes are rebuilt on the
+fly and never stored.
+
+Stage grouping (batch index b has log_nb = log_h - 5 bits; stage s >= 5
+pairs batches across bit s-5; stages s < 5 are in-word):
+
+  * bottom group: a tile of 2^k consecutive batches covers high stages
+    s = k+4 .. 5 and the 5 in-word stages;
+  * upper groups: a tile of 2^k batches strided by 2^t0 covers stages
+    t0+k+4 .. t0+5.
+
+Geometry: the kernel and the plain version index the tile directly.  At
+high stage st of a group (0-based) the pairing bit of the tile row t is
+p = k-1-st, and blk = t >> (p+1) — the bits the reference's
+constant-geometry loop rotates into the low st positions, in the same
+order, so the reference's mask tables apply unchanged.  The in-word stages
+keep the reference's out-shuffle loop, for which the ``lanes`` rows are
+pre-permuted.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..fields import bitsliced
+from ..utils.bits import lsr, to_torch, u32
+
+__all__ = ["KB", "KU", "PT", "plan_groups", "make_group_tables",
+           "build_tables", "stage_group", "stage_group_plain", "apply_fused"]
+
+HEIGHT = 7
+W = 1 << HEIGHT
+
+# Plan for Hopper.  The kernel keeps its tile in global memory (L2), so
+# unlike the reference's VMEM-sized tiles no shared-memory limit binds:
+# KB / KU are the most batch bits of the bottom / an upper group (a k = 8
+# tile is 128 KB per column), PT the most tile columns one thread block
+# covers.  Any plan gives identical output bits.
+KB = 8
+KU = 8
+PT = 8
+
+_UM = 0x0000FFFF
+_VM = u32(0xFFFF0000)
+
+
+def _bit_masks(constants, offset: int, count: int) -> np.ndarray:
+    """mask[i] = sum_m bit_i(constants[offset+m]) << m   (shape (128,))."""
+    out = np.zeros(W, dtype=np.uint32)
+    for m in range(count):
+        c = int(constants[offset + m])
+        for i in range(W):
+            if (c >> i) & 1:
+                out[i] |= np.uint32(1 << m)
+    return out
+
+
+def plan_groups(log_nb: int) -> list[tuple[int, int, bool]]:
+    """Split batch-index bits into (t0, k, include_low) groups, bottom-up:
+    a bottom group of at most KB bits, then ceil(rest / KU) upper groups
+    of near-equal size."""
+    groups = [(0, min(log_nb, KB), True)]
+    rem = log_nb - groups[0][1]
+    if rem > 0:
+        n = -(-rem // KU)
+        t0 = groups[0][1]
+        for i in range(n):
+            k = rem // n + (1 if i < rem % n else 0)
+            groups.append((t0, k, False))
+            t0 += k
+    return groups
+
+
+def make_group_tables(rows, log_h: int, log_rate: int, t0: int, k: int,
+                      include_low: bool):
+    """Mask tables for one stage group.
+
+    rows: precompute_subspace_evals(log_h, log_rate, 7) (python ints).
+    Returns numpy (mtile, minst, lanes, zero_flags): mtile/minst
+    (n_stages, 128) uint32 in execution order (high stages descending, then
+    low 4..0), lanes (5, 128) or None, zero_flags marking stages whose
+    twiddle is identically zero.
+
+    The reference's sharded builder at log_d = 0: q = coset << pre_bits |
+    pre, so minst packs the pre bits at [0, pre_bits) and the coset bits
+    above them.
+    """
+    pre_bits = log_h - 5 - t0 - k
+    mtile, minst = [], []
+
+    def inst_mask(s, base_off):
+        nbits = log_h + log_rate - 1 - s
+        p_cnt = max(min(pre_bits, nbits - base_off), 0)
+        c_off = base_off + pre_bits
+        c_cnt = max(nbits - c_off, 0)
+        return (_bit_masks(rows[s], base_off, p_cnt)
+                | (_bit_masks(rows[s], c_off, c_cnt) << np.uint32(pre_bits)))
+
+    for r in range(k - 1, -1, -1):
+        s = 5 + t0 + r
+        m0 = k - 1 - r
+        nbits = log_h + log_rate - 1 - s
+        mtile.append(_bit_masks(rows[s], 0, min(m0, nbits)))
+        minst.append(inst_mask(s, m0))
+    lanes = None
+    if include_low:
+        lane_list = []
+        for s in range(min(log_h - 1, 4), -1, -1):
+            nbits = log_h + log_rate - 1 - s
+            lane_bits = min(4 - s, nbits)
+            mtile.append(_bit_masks(rows[s], lane_bits,
+                                    min(k, max(nbits - lane_bits, 0))))
+            minst.append(inst_mask(s, lane_bits + k))
+            vals = [0] * 32
+            for j in range(32):
+                v = 0
+                jj = j >> (s + 1)
+                for m in range(lane_bits):
+                    if (jj >> m) & 1:
+                        v ^= rows[s][m]
+                vals[j] = v
+            # the out-shuffle loop: at iteration i = 4-s the word bits have
+            # been rotated i times (content pos -> rotl5(pos)), so physical
+            # bit p holds element rotr5^i(p)
+            perm = list(range(32))
+            for _ in range(4 - s):
+                perm = [((j >> 1) | ((j & 1) << 4)) & 31 for j in perm]
+            planes = np.zeros(W, dtype=np.uint32)
+            for i in range(W):
+                acc = 0
+                for p in range(32):
+                    acc |= ((vals[perm[p]] >> i) & 1) << p
+                planes[i] = acc
+            lane_list.append(planes)
+        lanes = np.stack(lane_list)
+    mtile = np.stack(mtile)
+    minst = np.stack(minst)
+    zero = []
+    for st in range(mtile.shape[0]):
+        z = not mtile[st].any() and not minst[st].any()
+        if st >= k and lanes is not None:
+            z = z and not lanes[st - k].any()
+        zero.append(z)
+    return mtile, minst, lanes, tuple(zero)
+
+
+def build_tables(rows, log_h: int, log_rate: int, device=None):
+    """Per-group tables, ordered for execution (top group first): a tuple of
+    (t0, k, include_low, mtile, minst, lanes, zero_flags) with int32
+    tensors on ``device``."""
+    out = []
+    for (t0, k, include_low) in reversed(plan_groups(log_h - 5)):
+        mtile, minst, lanes, zero_flags = make_group_tables(
+            rows, log_h, log_rate, t0, k, include_low)
+        out.append((t0, k, include_low, to_torch(mtile, device),
+                    to_torch(minst, device),
+                    None if lanes is None else to_torch(lanes, device),
+                    zero_flags))
+    return tuple(out)
+
+
+def _parity_planes(idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """All-ones planes where parity(idx & mask), zeros elsewhere."""
+    x = idx & mask
+    for s in (16, 8, 4, 2, 1):
+        x = x ^ lsr(x, s)
+    return -(x & 1)
+
+
+def _outshuffle(x: torch.Tensor) -> torch.Tensor:
+    # bit p = b*16 + j -> 2j + b (rotl of the 5-bit position index)
+    for m, sh in ((0x0000FF00, 8), (0x00F000F0, 4),
+                  (0x0C0C0C0C, 2), (0x22222222, 1)):
+        t = (lsr(x, sh) ^ x) & m
+        x = x ^ t ^ (t << sh)
+    return x
+
+
+def _group_geometry(x, mtile, minst, lanes, t0, k, include_low):
+    """Validate a stage_group call; return (n_inst, post)."""
+    if x.dtype != torch.int32 or x.dim() != 3 or x.shape[2] != W:
+        raise ValueError(f"stage_group: x must be (cosets, nb, {W}) int32, "
+                         f"got {tuple(x.shape)} {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("stage_group: x must be contiguous")
+    cosets, nb, _ = x.shape
+    post = 1 << t0
+    if k < 1 or nb % ((1 << k) * post):
+        raise ValueError(f"stage_group: nb={nb} does not hold tiles of "
+                         f"2^{k} x {post} batches")
+    n_stages = k + (5 if include_low else 0)
+    for name, t, rows_ in (("mtile", mtile, n_stages),
+                           ("minst", minst, n_stages),
+                           ("lanes", lanes, 5 if include_low else None)):
+        if rows_ is None:
+            continue
+        if (t is None or t.dtype != torch.int32
+                or tuple(t.shape) != (rows_, W) or t.device != x.device
+                or not t.is_contiguous()):
+            raise ValueError(f"stage_group: {name} must be a contiguous "
+                             f"({rows_}, {W}) int32 tensor on {x.device}")
+    if include_low and post != 1:
+        raise ValueError("stage_group: the bottom group has t0 = 0")
+    return cosets * nb // ((1 << k) * post), post
+
+
+def stage_group_plain(x, mtile, minst, lanes, *, t0: int, k: int,
+                      include_low: bool, zero_flags: tuple = ()):
+    """Plain torch version of :func:`stage_group`, on any device.
+
+    Whole-tensor ops over every instance at once, with the multiply of
+    fields/bitsliced.py.  Works in place like the kernel: x is updated and
+    returned.  Zero-flagged stages are computed like any other (their
+    twiddle is 0, so the product is 0).
+    """
+    n_inst, post = _group_geometry(x, mtile, minst, lanes, t0, k,
+                                   include_low)
+    kk = 1 << k
+    x5 = x.view(n_inst, kk, post, W)
+    q = torch.arange(n_inst, dtype=torch.int32, device=x.device)
+    for st in range(k):
+        p = k - 1 - st
+        xv = x5.view(n_inst, 1 << st, 2, 1 << p, post, W)
+        u, v = xv[:, :, 0], xv[:, :, 1]
+        blk = torch.arange(1 << st, dtype=torch.int32, device=x.device)
+        w = (_parity_planes(blk[None, :, None], mtile[st])
+             ^ _parity_planes(q[:, None, None], minst[st]))
+        u2 = u ^ bitsliced.multiply(w[:, :, None, None, :], v, HEIGHT)
+        v2 = u2 ^ v
+        u.copy_(u2)
+        v.copy_(v2)
+
+    if include_low:
+        xf = x5.view(n_inst, kk, W)
+        t = torch.arange(kk, dtype=torch.int32, device=x.device)
+        for i in range(5):
+            st = k + i
+            x0, x1 = xf[:, 0::2], xf[:, 1::2]
+            wrow = (_parity_planes(t[None, :, None], mtile[st])
+                    ^ _parity_planes(q[:, None, None], minst[st])
+                    ^ lanes[i])
+            w0, w1 = wrow[:, 0::2], wrow[:, 1::2]
+            # even row's v-lanes into the u-slots, odd row's stay in v-slots
+            comp = (lsr(x0, 16) & _UM) | (x1 & _VM)
+            wcmp = (w0 & _UM) | ((w1 & _UM) << 16)
+            prod = bitsliced.multiply(wcmp, comp, HEIGHT)
+            un0 = x0 ^ (prod & _UM)
+            un1 = x1 ^ lsr(prod & _VM, 16)
+            y0 = (un0 & _UM) | ((x0 ^ (un0 << 16)) & _VM)
+            y1 = (un1 & _UM) | ((x1 ^ (un1 << 16)) & _VM)
+            x0.copy_(_outshuffle(y0))
+            x1.copy_(_outshuffle(y1))
+    return x
+
+
+def stage_group(x, mtile, minst, lanes, *, t0: int, k: int,
+                include_low: bool, zero_flags: tuple = ()):
+    """Run one stage group over x: (cosets, nb, 128) int32, IN PLACE.
+
+    Covers high stages 5+t0+k-1 .. 5+t0 and, if include_low, the in-word
+    stages 4..0.  x is updated in place (the reference's
+    input_output_aliases) and returned.  A CPU tensor runs
+    :func:`stage_group_plain`; a CUDA tensor launches the kernel of
+    csrc/stage_group.cu or raises.
+    """
+    if x.device.type == "cpu":
+        return stage_group_plain(x, mtile, minst, lanes, t0=t0, k=k,
+                                 include_low=include_low,
+                                 zero_flags=zero_flags)
+    if x.device.type != "cuda":
+        raise ValueError(f"stage_group: unsupported device {x.device}")
+    n_inst, post = _group_geometry(x, mtile, minst, lanes, t0, k,
+                                   include_low)
+    zero_mask = sum(1 << st for st, z in enumerate(zero_flags) if z)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        rc = lib.bntt_stage_group(
+            x.data_ptr(), mtile.data_ptr(), minst.data_ptr(),
+            lanes.data_ptr() if include_low else None, n_inst, k, post,
+            min(PT, post), int(include_low), zero_mask,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "stage_group")
+    stage_group.launches += 1
+    return x
+
+
+stage_group.launches = 0
+
+
+def apply_fused(data, tables, *, log_rate: int):
+    """Full transform: data (nb, 128) bit-sliced -> (cosets*nb, 128).
+
+    tables: build_tables() output, top group first (DIT: high stages
+    first).  The input is copied once per coset into a fresh tensor (the
+    groups work in place, so a broadcast view would alias the cosets);
+    ``data`` itself is not modified.
+    """
+    nb = data.shape[0]
+    cosets = 1 << log_rate
+    x = data.repeat(cosets, 1).view(cosets, nb, W)
+    for (t0, k, include_low, mtile, minst, lanes, zero_flags) in tables:
+        stage_group(x, mtile, minst, lanes, t0=t0, k=k,
+                    include_low=include_low, zero_flags=zero_flags)
+    return x.view(cosets * nb, W)
