@@ -6,19 +6,24 @@ built for sm_90a by nvcc at first use) for the hot path.  It never imports
 jax.
 
 Ported so far: the bit-sliced GF(2^128) additive NTT (AdditiveNTT128, the
-fused stage-group path) with its host foundations, and the standalone
-bit-sliced multiply (ntt/cuda_kernels.mul_tiles).
+fused stage-group path) with its host foundations, the standalone
+bit-sliced multiply (ntt/cuda_kernels.mul_tiles), and the bit-sliced
+GF(2^128) sumcheck prover (Sumcheck, with its round and challenge-fold
+kernels in sumcheck/cuda_round.py and the host verifier in
+sumcheck/verifier.py).
 """
 
 from .fields import bitsliced, tower_scalar
 from .layout.bitslicing import bitslice_transpose, bitslice_untranspose
 from .ntt.additive_bitsliced import AdditiveNTT128
 from .ntt.nttdata import DataOrder, NTTData
+from .sumcheck.prover import Sumcheck
 
 __all__ = [
     "AdditiveNTT128",
     "DataOrder",
     "NTTData",
+    "Sumcheck",
     "bitslice_transpose",
     "bitslice_untranspose",
     "bitsliced",

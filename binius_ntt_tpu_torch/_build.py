@@ -1,10 +1,11 @@
 """Build the CUDA kernels at first use and bind them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds, not minutes).  The library lands in ``_build/`` beside this
-file (listed in .gitignore), named by a digest of the sources and flags, so
-a changed source rebuilds and an unchanged one loads the existing file.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``,
+all of them at once, and the objects are linked into one shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds, not
+minutes).  The library lands in ``_build/`` beside this file (listed in
+.gitignore), named by a digest of the sources and flags, so a changed
+source rebuilds and an unchanged one loads the existing file.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises if that is not 0.  Nothing here runs at import time.
@@ -26,13 +27,16 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_U = ctypes.c_uint32
 _SIGNATURES = {
     # name: argtypes (pointers and the stream as c_void_p)
     "bntt_mul_tiles": (_P, _P, _P, _L, _P),
     "bntt_stage_group": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "bntt_sumcheck_round": (_P, _P, _I, _L, _L, _I, _P, _P),
+    "bntt_sumcheck_fold": (_P, _I, _L, _L, _I, _U, _U, _U, _U, _P),
 }
 
 _lib = None
@@ -53,6 +57,20 @@ def _nvcc() -> str:
                        "csrc/ at first use and need the CUDA toolkit")
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; return their output, raise if any
+    failed (after all of them have ended)."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+    return "".join(logs)
+
+
 def _compile() -> Path:
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -63,18 +81,22 @@ def _compile() -> Path:
     if out.exists():
         build_info.update(seconds=0.0, log="(cached)")
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = BUILD_DIR / f"objects.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    nvcc = _nvcc()
+    objects = [work / f"{src.stem}.o" for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    try:
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(sources, objects)])
+        log += _run([[nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
+                      *map(str, objects)]])
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    build_info.update(seconds=seconds, log=proc.stdout + proc.stderr)
+        shutil.rmtree(work, ignore_errors=True)
+    build_info.update(seconds=time.perf_counter() - t0, log=log)
     return out
 
 

@@ -1,11 +1,14 @@
 """Carry the JAX package's state across to the port.
 
-The transform has no weights: its state is the twiddle rows and the
-per-group parity-mask tables.  ``tables_from_jax`` turns the tuple that
-``binius_ntt_tpu.ntt.pallas_fused.build_tables`` returns into the port's
-``cuda_fused.build_tables`` form, so a test can feed both packages the same
-tables.  This module imports no JAX: each array goes through
-``np.asarray``.
+Neither the transform nor the prover has weights.  The transform's state is
+the twiddle rows and the per-group parity-mask tables: ``tables_from_jax``
+turns the tuple that ``binius_ntt_tpu.ntt.pallas_fused.build_tables``
+returns into the port's ``cuda_fused.build_tables`` form, so a test can
+feed both packages the same tables.  The sumcheck prover's state is its
+round and its folded evaluations: ``sumcheck_state_from_jax`` turns the
+dict of ``binius_ntt_tpu.sumcheck.prover.Sumcheck.state_dict()`` into the
+port's, so a protocol begun in JAX can finish in the port.  This module
+imports no JAX: each array goes through ``np.asarray``.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import numpy as np
 
 from .utils.bits import to_torch
 
-__all__ = ["tables_from_jax"]
+__all__ = ["tables_from_jax", "sumcheck_state_from_jax"]
 
 
 def tables_from_jax(jax_tables, device=None):
@@ -29,3 +32,14 @@ def tables_from_jax(jax_tables, device=None):
                     else to_torch(np.asarray(lanes), device),
                     tuple(bool(z) for z in zero_flags)))
     return tuple(out)
+
+
+def sumcheck_state_from_jax(d: dict, device=None) -> dict:
+    """A JAX ``Sumcheck.state_dict()`` -> the port's state dict, with the
+    evaluation arrays as int32 tensors on ``device`` (resume with
+    ``binius_ntt_tpu_torch.sumcheck.prover.Sumcheck.from_state_dict``)."""
+    out = {k: int(d[k]) for k in ("num_vars", "composition_size", "round")}
+    for k in ("device_evals", "host_evals"):
+        out[k] = (None if d[k] is None
+                  else to_torch(np.asarray(d[k], dtype=np.uint32), device))
+    return out

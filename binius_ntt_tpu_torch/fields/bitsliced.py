@@ -1,10 +1,11 @@
 """Bit-sliced binary-tower multiply as a stacked Karatsuba pipeline (torch).
 
 Port of binius_ntt_tpu/fields/bitsliced.py (``multiply``,
-``multiply_alpha``).  It is the plain version behind the port's CUDA
-multiply kernels: ``cuda_kernels.mul_tiles_plain`` and
-``cuda_fused.stage_group_plain`` are built on it, and the CPU tests hold it
-word for word against the JAX function.
+``multiply_alpha``, ``square``, ``mul_subfield_chunks``).  It is the plain
+version behind the port's CUDA multiply kernels:
+``cuda_kernels.mul_tiles_plain``, ``cuda_fused.stage_group_plain`` and the
+sumcheck's ``cuda_round.round_plain``/``fold_plain`` are built on it, and
+the CPU tests hold it word for word against the JAX functions.
 
 The Karatsuba recursion is evaluated level-synchronously: at level ``d``
 all ``3^d`` pending half-width products are stacked along one axis, so the
@@ -20,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["multiply", "multiply_alpha"]
+__all__ = ["multiply", "multiply_alpha", "square", "mul_subfield_chunks"]
 
 
 def multiply_alpha(x: torch.Tensor, height: int) -> torch.Tensor:
@@ -65,3 +66,31 @@ def multiply(a: torch.Tensor, b: torch.Tensor, height: int) -> torch.Tensor:
         z = torch.cat([lo, hi], dim=-1)
 
     return z[..., 0, :]
+
+
+def square(a: torch.Tensor, height: int) -> torch.Tensor:
+    """Bit-sliced squaring: [a0, a1] -> [s0 ^ s2, alpha(s2)] with s = a^2.
+
+    Squaring is GF(2)-linear, so this is XOR-only (no ANDs)."""
+    if height == 0:
+        return a
+    half = a.shape[-1] // 2
+    s0 = square(a[..., :half], height - 1)
+    s2 = square(a[..., half:], height - 1)
+    return torch.cat([s0 ^ s2, multiply_alpha(s2, height - 1)], dim=-1)
+
+
+def mul_subfield_chunks(x: torch.Tensor, coeff_planes: torch.Tensor,
+                        full_height: int, sub_height: int) -> torch.Tensor:
+    """Multiply a bit-sliced batch by a subfield scalar, chunk-wise.
+
+    GF(2^(2^full)) is a vector space over GF(2^(2^sub)), so multiplying by
+    a subfield element acts on each 2^sub-plane chunk on its own.
+    ``x``: (..., 2^full) planes; ``coeff_planes``: (..., 2^sub) planes of
+    the subfield-valued coefficient batch.
+    """
+    wf, ws = 1 << full_height, 1 << sub_height
+    lead = x.shape[:-1]
+    chunks = x.reshape(lead + (wf // ws, ws))
+    prod = multiply(chunks, coeff_planes.unsqueeze(-2), sub_height)
+    return prod.reshape(lead + (wf,))

@@ -1,7 +1,8 @@
 """Bit-slicing layout transforms on int32 tensors.
 
 Port of binius_ntt_tpu/layout/bitslicing.py (``transpose32``,
-``bitslice_transpose``, ``bitslice_untranspose``).  These are plain tensor
+``bitslice_transpose``, ``bitslice_untranspose``,
+``repeat_value_bitsliced``).  These are plain tensor
 ops in the reference too (jnp, not Pallas), so they stay torch ops here and
 run on whatever device the tensor lies on.
 
@@ -17,11 +18,13 @@ Words are int32 with uint32 bits (utils/bits.py); right shifts are logical.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..utils.bits import lsr
+from ..utils.bits import lsr, to_torch
 
-__all__ = ["transpose32", "bitslice_transpose", "bitslice_untranspose"]
+__all__ = ["transpose32", "bitslice_transpose", "bitslice_untranspose",
+           "repeat_value_bitsliced"]
 
 
 def transpose32(a: torch.Tensor) -> torch.Tensor:
@@ -67,3 +70,16 @@ def bitslice_untranspose(arr: torch.Tensor) -> torch.Tensor:
     a = transpose32(arr.reshape(lead + (ipv, 32)))
     # new[ipv * (i % 32) + i // 32] = tmp[i]
     return a.transpose(-1, -2).reshape(lead + (w,))
+
+
+def repeat_value_bitsliced(value, bits_width: int,
+                           device=None) -> torch.Tensor:
+    """Broadcast one value (``bits_width // 32`` uint32 words) into a
+    bit-sliced batch: a (bits_width,) int32 tensor on ``device`` whose
+    plane i is all ones where bit i of the value is set."""
+    value = np.asarray(value, dtype=np.uint32)
+    ipv = bits_width // 32
+    if value.shape != (ipv,):
+        raise ValueError(f"repeat_value_bitsliced: expected {ipv} words, "
+                         f"got shape {value.shape}")
+    return bitslice_transpose(to_torch(np.tile(value, 32), device))

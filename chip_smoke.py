@@ -16,7 +16,21 @@ run with a non-zero exit and no result line:
   5. main path — AdditiveNTT128(24, r).apply on mt19937 input for r = 0, 2,
      held to the native oracle's golden MD5 digests, with every launch
      counter reset just before and read just after;
-  6. timing   — stage groups at 2^24 rate 0, kernel vs plain, CUDA events.
+  6. timing   — stage groups at 2^24 rate 0, kernel vs plain, CUDA events;
+  7. sumcheck_kernels — the sumcheck round and fold kernels vs their plain
+     versions at every round of num_vars 12 and 20, C = 2, 3, 4: every
+     live row count, then the in-word rounds (rows = 1, lanes 32 .. 1);
+  8. sumcheck_main — the second path: Sumcheck(mt19937 words, C, 24) for
+     C = 2, 3, 4 through all 24 rounds, every transcript held to the
+     verifier's checks, with every launch counter reset just before and
+     read just after; at C = 2 the same protocol through the plain
+     versions must give the same transcript; then the num_vars-20
+     transcripts against the digests the JAX package minted
+     (tests/test_torch_sumcheck_golden.py);
+  9. sumcheck_timing — the first round's round and fold at 2^24, each held
+     word-equal to its plain version on the same input and then timed
+     beside it (CUDA events), and the whole protocol from device-resident
+     input (host clock with a synchronise), C = 2, 3, 4.
 
 Then three lines: the kernels as JSON, the card's name and power limit
 from nvidia-smi, and the result line
@@ -27,9 +41,11 @@ The script imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import importlib.util
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -41,13 +57,15 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-from binius_ntt_tpu_torch import AdditiveNTT128, _build  # noqa: E402
+from binius_ntt_tpu_torch import AdditiveNTT128, Sumcheck, _build  # noqa: E402
 from binius_ntt_tpu_torch.layout.bitslicing import (  # noqa: E402
     bitslice_transpose, bitslice_untranspose)
 from binius_ntt_tpu_torch.ntt import cuda_fused as cf  # noqa: E402
 from binius_ntt_tpu_torch.ntt import cuda_kernels as ck  # noqa: E402
 from binius_ntt_tpu_torch.ntt.additive import (  # noqa: E402
     precompute_subspace_evals)
+from binius_ntt_tpu_torch.sumcheck import cuda_round as cr  # noqa: E402
+from binius_ntt_tpu_torch.sumcheck import verifier  # noqa: E402
 from binius_ntt_tpu_torch.utils.benchlib import device_time  # noqa: E402
 from binius_ntt_tpu_torch.utils.bits import to_numpy, to_torch  # noqa: E402
 from binius_ntt_tpu_torch.utils.capabilities import (  # noqa: E402
@@ -56,6 +74,9 @@ from binius_ntt_tpu_torch.utils.mt19937 import mt19937_stream  # noqa: E402
 
 SEED = 0xDEADBEEF
 W = 128
+SUMCHECK_SEED = 0x5C0024        # the 2^24 sumcheck inputs and challenges
+COMPS = (2, 3, 4)               # the reference's composition sizes
+COUNTED = (ck.mul_tiles, cf.stage_group, cr.round_kernel, cr.fold_kernel)
 
 
 def say(phase: str, msg: str) -> None:
@@ -78,13 +99,22 @@ def md5_words(t: torch.Tensor) -> str:
     return hashlib.md5(to_numpy(t).astype("<u4").tobytes()).hexdigest()
 
 
-def golden_table():
-    path = ROOT / "tests" / "golden_hashes_oracle.py"
-    spec = importlib.util.spec_from_file_location("golden_hashes_oracle",
-                                                  path)
+def load_test_file(name: str):
+    """A JAX-free module of tests/, loaded by path."""
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "tests" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.ADDITIVE_NTT128_HASHES
+    return mod
+
+
+def golden_table():
+    return load_test_file("golden_hashes_oracle").ADDITIVE_NTT128_HASHES
+
+
+def reset_counts() -> None:
+    for wrapper in COUNTED:
+        wrapper.launches = 0
 
 
 def sliced_input(log_h: int, log_rate: int, device) -> torch.Tensor:
@@ -192,8 +222,7 @@ def phase_main_path(dev, golden):
     say("main", f"set-up (twiddles, tables, inputs) "
         f"{time.perf_counter() - t0:.1f} s host")
 
-    cf.stage_group.launches = 0
-    ck.mul_tiles.launches = 0
+    reset_counts()
     outs = []
     for log_rate, ntt, words in runs:
         torch.cuda.synchronize()
@@ -242,6 +271,180 @@ def phase_timing(ntt, dev) -> dict:
     return {"ms": ms, "plain_ms": plain_ms}
 
 
+def phase_sumcheck_kernels(dev, num_vars_list=(12, 20)) -> dict:
+    """Kernel vs plain at every live row count of a protocol; returns the
+    largest error of each kernel."""
+    rng = np.random.default_rng(SEED)
+    worst = {"round": 0, "fold": 0}
+    for num_vars in num_vars_list:
+        for comp in COMPS:
+            b = (1 << num_vars) // 32
+            x = to_torch(rng.integers(0, 1 << 32, (comp, b, W),
+                                      dtype=np.uint32), dev)
+            # (rows, lanes) of every round: rows b .. 2, then in-word
+            live = [(b >> k, 32) for k in range(b.bit_length() - 1)]
+            live += [(1, 32 >> k) for k in range(6)]
+            for rows, lanes in live:
+                got = cr.round_kernel(x, rows, comp + 1, lanes)
+                want = cr.round_plain(x, rows, comp + 1, lanes)
+                err_r = max_abs_err(got, want)
+                err_f = 0
+                if rows * lanes >= 2:             # the last round has no fold
+                    ch = rng.integers(0, 1 << 32, 4, dtype=np.uint32)
+                    folded = cr.fold_kernel(x.clone(), ch, rows, lanes)
+                    want_folded = cr.fold_plain(x.clone(), ch, rows, lanes)
+                    err_f = max_abs_err(folded, want_folded)
+                    x = folded
+                require(err_r == 0 and err_f == 0,
+                        f"sumcheck kernels differ from plain at num_vars "
+                        f"{num_vars}, C={comp}, rows={rows}, lanes={lanes} "
+                        f"(round {err_r}, fold {err_f})")
+                worst["round"] = max(worst["round"], err_r)
+                worst["fold"] = max(worst["fold"], err_f)
+            say("sumcheck_kernels", f"num_vars {num_vars}, C={comp}: round "
+                f"and fold word-equal to plain at every live row count "
+                f"{b}..2 and in-word lanes 32..1 (max_abs_err 0, tolerance "
+                f"exact)")
+    return worst
+
+
+@contextlib.contextmanager
+def plain_sumcheck():
+    """The prover's round and fold calls go to the plain versions."""
+    saved = cr.round_kernel, cr.fold_kernel
+    cr.round_kernel, cr.fold_kernel = cr.round_plain, cr.fold_plain
+    try:
+        yield
+    finally:
+        cr.round_kernel, cr.fold_kernel = saved
+
+
+def same_transcript(a, b) -> bool:
+    return len(a) == len(b) and all(
+        np.array_equal(sa, sb) and np.array_equal(pa, pb)
+        for (sa, pa), (sb, pb) in zip(a, b))
+
+
+def phase_sumcheck_main(dev, sc, num_vars=24, golden_num_vars=20):
+    t0 = time.perf_counter()
+    # one stream serves every C: column c of the C = 4 input is column c
+    # of the others
+    words = mt19937_stream(SUMCHECK_SEED, 4 * (1 << num_vars) * max(COMPS))
+    challenges = mt19937_stream(SUMCHECK_SEED + 1,
+                                4 * num_vars).reshape(num_vars, 4)
+    say("sumcheck_main", f"set-up (mt19937 inputs, {words.size} words) "
+        f"{time.perf_counter() - t0:.1f} s host")
+
+    reset_counts()
+    runs = []
+    for comp in COMPS:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prover = Sumcheck(words[:4 * (1 << num_vars) * comp], comp,
+                          num_vars, device=dev)
+        messages = sc.transcript(prover, challenges)
+        torch.cuda.synchronize()
+        runs.append((comp, messages, time.perf_counter() - t1))
+    launches = {"sumcheck_round": cr.round_kernel.launches,
+                "sumcheck_fold": cr.fold_kernel.launches}
+
+    for comp, messages, sec in runs:
+        verifier.check_transcript(messages, challenges, comp + 1)
+        say("sumcheck_main", f"Sumcheck(2^{num_vars} evaluations, "
+            f"C={comp}): {num_vars} rounds pass the verifier's checks "
+            f"(sum = p(0) + p(1), sum = the previous claim, final sum = "
+            f"the last claim); "
+            f"{sec:.3f} s host clock incl. upload and layout; transcript "
+            f"MD5 {sc.transcript_md5(messages)}")
+    require(launches["sumcheck_round"] > 0 and launches["sumcheck_fold"] > 0,
+            f"the sumcheck kernels were not launched: {launches}")
+    say("sumcheck_main", f"launches {launches}")
+
+    with plain_sumcheck():
+        plain = sc.transcript(Sumcheck(words[:4 * (1 << num_vars) * 2], 2,
+                                       num_vars, device=dev), challenges)
+    require(same_transcript(plain, runs[0][1]),
+            "the C = 2 transcript differs from the plain versions'")
+    say("sumcheck_main", "C=2 transcript equals the plain versions' on the "
+        "card")
+
+    for comp in COMPS:
+        nv = golden_num_vars
+        w, ch = sc.protocol_inputs(nv, comp, mt19937_stream)
+        messages = sc.transcript(Sumcheck(w, comp, nv, device=dev), ch)
+        verifier.check_transcript(messages, ch, comp + 1)
+        digest = sc.transcript_md5(messages)
+        want = sc.SUMCHECK_TRANSCRIPT_MD5[nv][comp]
+        require(digest == want, f"num_vars {nv}, C={comp}: transcript MD5 "
+                f"{digest} != the JAX package's {want}")
+        say("sumcheck_main", f"num_vars {nv}, C={comp}: transcript MD5 "
+            f"{digest} matches the JAX package's")
+    return launches, words, challenges
+
+
+def timed_protocol(prover, challenges) -> list[float]:
+    """Host-clock seconds of every round (messages, then the fold, then a
+    synchronise), and last of the final round_messages."""
+    seconds = []
+    for ch in challenges:
+        t0 = time.perf_counter()
+        prover.round_messages()
+        prover.move_to_next_round(ch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    prover.round_messages()
+    seconds.append(time.perf_counter() - t0)
+    return seconds
+
+
+def phase_sumcheck_timing(dev, words, challenges, worst,
+                          num_vars=24) -> dict:
+    """Times at 2^24; first holds each kernel to its plain version on the
+    timed input (the grid-stride loop runs more than one row pair per
+    thread only from num_vars 23), raising ``worst`` to what it finds."""
+    b = (1 << num_vars) // 32
+    out = {}
+    for comp in COMPS:
+        sliced = bitslice_transpose(
+            to_torch(words[:4 * (1 << num_vars) * comp], dev).view(comp, b,
+                                                                  W))
+        x = sliced.clone()
+        err_r = max_abs_err(cr.round_kernel(x, b, comp + 1),
+                            cr.round_plain(x, b, comp + 1))
+        err_f = max_abs_err(cr.fold_kernel(x.clone(), challenges[0], b),
+                            cr.fold_plain(x.clone(), challenges[0], b))
+        require(err_r == 0 and err_f == 0,
+                f"sumcheck kernels differ from plain at 2^{num_vars}, "
+                f"C={comp} (round {err_r}, fold {err_f})")
+        worst["round"] = max(worst["round"], err_r)
+        worst["fold"] = max(worst["fold"], err_f)
+        t = {"round_ms": device_time(cr.round_kernel, x, b, comp + 1),
+             "round_plain_ms": device_time(cr.round_plain, x, b, comp + 1,
+                                           warmup=1, reps=3),
+             # the fold works in place: each call folds the same rows again
+             "fold_ms": device_time(cr.fold_kernel, x, challenges[0], b),
+             "fold_plain_ms": device_time(cr.fold_plain, x, challenges[0], b,
+                                          warmup=1, reps=3)}
+        t = {k: v * 1e3 for k, v in t.items()}
+        runs = [timed_protocol(Sumcheck(sliced.clone(), comp, num_vars,
+                                        data_is_transposed=True), challenges)
+                for _ in range(3)]
+        # the last 5 rounds and the final sum are in-word (32 evals or
+        # fewer, one thread per launch)
+        t["protocol_ms"] = statistics.median(sum(r) for r in runs) * 1e3
+        t["in_word_ms"] = statistics.median(sum(r[-6:]) for r in runs) * 1e3
+        say("sumcheck_timing", f"2^{num_vars}, C={comp}: round and fold "
+            f"word-equal to plain on the timed input (max_abs_err 0); first "
+            f"round {t['round_ms']:.3f} ms (plain {t['round_plain_ms']:.3f} "
+            f"ms), fold {t['fold_ms']:.3f} ms (plain "
+            f"{t['fold_plain_ms']:.3f} ms); whole protocol from device "
+            f"input {t['protocol_ms']:.3f} ms host clock, of it the in-word "
+            f"rounds {t['in_word_ms']:.3f} ms (medians of 3)")
+        out[comp] = t
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an sm_90 "
@@ -255,6 +458,25 @@ def main() -> int:
     sg_err = phase_stage_group(dev, golden)
     launches, ntt24 = phase_main_path(dev, golden)
     timing = phase_timing(ntt24, dev)
+    sc = load_test_file("test_torch_sumcheck_golden")
+    sc_err = phase_sumcheck_kernels(dev)
+    sc_launches, words, challenges = phase_sumcheck_main(dev, sc)
+    sc_timing = phase_sumcheck_timing(dev, words, challenges, sc_err)
+
+    def sumcheck_entry(kind: str, line: int) -> dict:
+        return {
+            "name": f"sumcheck_{kind}", "route": "cuda",
+            "source": f"binius_ntt_tpu_torch/csrc/sumcheck_{kind}.cu",
+            "replaces": f"binius_ntt_tpu/sumcheck/pallas_round.py:{line}",
+            "launches": sc_launches[f"sumcheck_{kind}"],
+            "max_abs_err": sc_err[kind],
+            "ms": sc_timing[2][f"{kind}_ms"],
+            "plain_ms": sc_timing[2][f"{kind}_plain_ms"],
+            "shape": "2^24 evaluations, first round; ms and plain_ms at C=2",
+            "ms_by_composition": {
+                c: sc_timing[c][f"{kind}_ms"] for c in COMPS},
+            "plain_ms_by_composition": {
+                c: sc_timing[c][f"{kind}_plain_ms"] for c in COMPS}}
 
     mul["launches"] = launches["mul_tiles"]
     kernels = {
@@ -263,8 +485,13 @@ def main() -> int:
             "source": "binius_ntt_tpu_torch/csrc/stage_group.cu",
             "replaces": "binius_ntt_tpu/ntt/pallas_fused.py:341",
             "launches": launches["stage_group"], "max_abs_err": sg_err,
-            "ms": timing["ms"], "plain_ms": timing["plain_ms"]}],
-        # built and checked, but not on the NTT path (the sumcheck's)
+            "ms": timing["ms"], "plain_ms": timing["plain_ms"]},
+            sumcheck_entry("round", 175), sumcheck_entry("fold", 294)],
+        # built and checked, but on neither of the port's paths.  In the
+        # reference it runs in the TPU sumcheck's small rounds (the jnp
+        # kernels below the Pallas tile gate multiply through it); the
+        # port's sumcheck_round and sumcheck_fold take that work over for
+        # every round
         "off_path": [mul],
     }
     print(json.dumps(kernels))

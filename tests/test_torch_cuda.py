@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions, and
+the NTT and sumcheck paths on the card against their golden digests.
 
 Every test here needs an sm_90 GPU and nvcc; it is marked ``cuda`` and skips
 elsewhere.  The file imports no JAX, so it also runs on a machine with only
@@ -14,11 +15,16 @@ import pytest
 import torch
 
 from golden_hashes_oracle import ADDITIVE_NTT128_HASHES
-from binius_ntt_tpu_torch import AdditiveNTT128
+from test_torch_sumcheck_golden import (SUMCHECK_TRANSCRIPT_MD5,
+                                        protocol_inputs, transcript,
+                                        transcript_md5)
+from binius_ntt_tpu_torch import AdditiveNTT128, Sumcheck
 from binius_ntt_tpu_torch.layout.bitslicing import bitslice_transpose
 from binius_ntt_tpu_torch.ntt import cuda_fused as cf
 from binius_ntt_tpu_torch.ntt import cuda_kernels as ck
 from binius_ntt_tpu_torch.ntt.additive import precompute_subspace_evals
+from binius_ntt_tpu_torch.sumcheck import cuda_round as cr
+from binius_ntt_tpu_torch.sumcheck import verifier as V
 from binius_ntt_tpu_torch.utils.bits import to_numpy, to_torch
 from binius_ntt_tpu_torch.utils.mt19937 import mt19937_stream
 
@@ -99,3 +105,88 @@ def test_apply_sliced_rejects_a_tensor_on_another_device(dev):
     ntt = AdditiveNTT128(8, 0, device=dev)
     with pytest.raises(ValueError, match="apply_sliced"):
         ntt.apply_sliced(torch.zeros(8, 128, dtype=torch.int32))
+
+
+def _sumcheck_state(num_vars, comp, device):
+    words = mt19937_stream(700 + num_vars + comp,
+                           4 * (1 << num_vars) * comp)
+    return bitslice_transpose(to_torch(words, device).view(comp, -1, 128))
+
+
+CHALLENGE = [0xFFFFFFFF, 0x80000000, 0x12345678, 7]
+
+
+@pytest.mark.parametrize("comp", [2, 3, 4, cr.MAX_COMPOSITION])
+def test_sumcheck_kernels_match_plain(dev, comp):
+    x = _sumcheck_state(12, comp, dev)                 # B = 128 batches
+    b = x.shape[1]
+    for rows in (2, 4, b // 2, b):
+        before = (cr.round_kernel.launches, cr.fold_kernel.launches)
+        got = cr.round_kernel(x, rows, comp + 1)
+        folded = cr.fold_kernel(x.clone(), CHALLENGE, rows)
+        torch.cuda.synchronize()
+        assert (cr.round_kernel.launches, cr.fold_kernel.launches) == (
+            before[0] + 1, before[1] + 1)
+        assert torch.equal(got, cr.round_plain(x, rows, comp + 1))
+        assert torch.equal(folded, cr.fold_plain(x.clone(), CHALLENGE, rows))
+    for lanes in (32, 16, 2, 1):                       # in-word rounds
+        got = cr.round_kernel(x, 1, comp + 1, lanes)
+        assert torch.equal(got, cr.round_plain(x, 1, comp + 1, lanes))
+        if lanes >= 2:
+            folded = cr.fold_kernel(x.clone(), CHALLENGE, 1, lanes)
+            assert torch.equal(
+                folded, cr.fold_plain(x.clone(), CHALLENGE, 1, lanes))
+
+
+def test_sumcheck_kernels_refuse_what_they_do_not_take(dev):
+    x = _sumcheck_state(8, 2, dev)                     # (2, 8, 128)
+    with pytest.raises(ValueError, match="contiguous"):
+        cr.round_kernel(x[:, ::2], 4, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        cr.fold_kernel(x[:, ::2], CHALLENGE, 4)
+    with pytest.raises(ValueError, match="int32"):
+        cr.round_kernel(x.long(), 8, 3)
+    with pytest.raises(ValueError, match="int32"):
+        cr.fold_kernel(x.long(), CHALLENGE, 8)
+    with pytest.raises(ValueError, match="host words"):
+        cr.fold_kernel(x, to_torch(np.array(CHALLENGE, np.uint32), dev), 8)
+    with pytest.raises(ValueError, match="num_points"):
+        cr.round_kernel(x, 8, 4)
+    with pytest.raises(ValueError, match="lanes"):
+        cr.round_kernel(x, 1, 3, 3)
+    with pytest.raises(ValueError, match="lanes"):
+        cr.fold_kernel(x, CHALLENGE, 8, 16)
+    with pytest.raises(ValueError, match="device"):
+        Sumcheck(x, 2, 8, data_is_transposed=True, device="cpu")
+
+
+@pytest.mark.parametrize("comp,transposed", [(2, False), (3, True)])
+def test_sumcheck_protocol_on_card(dev, comp, transposed):
+    num_vars = 8
+    n = 4 * (1 << num_vars) * comp
+    vals = mt19937_stream(1000 + comp, n + 4 * num_vars)
+    evals, challenges = vals[:n], vals[n:].reshape(num_vars, 4)
+    given = (to_numpy(bitslice_transpose(to_torch(evals).view(-1, 128)))
+             if transposed else evals)
+    before = (cr.round_kernel.launches, cr.fold_kernel.launches)
+    s = Sumcheck(given, comp, num_vars, data_is_transposed=transposed,
+                 device=dev)
+    messages = transcript(s, challenges)
+    # every round on the card, the in-word ones too, and the final sum
+    assert (cr.round_kernel.launches, cr.fold_kernel.launches) == (
+        before[0] + num_vars + 1, before[1] + num_vars)
+    claim = V.check_transcript(messages, challenges, comp + 1)
+    per_col = (1 << num_vars) * 4
+    cols = [[V.words_to_int(w) for w in
+             evals[c * per_col:(c + 1) * per_col].reshape(-1, 4)]
+            for c in range(comp)]
+    assert V.evaluate_multilinear_composition(
+        cols, [V.words_to_int(ch) for ch in challenges]) == claim
+
+
+@pytest.mark.parametrize("comp", [2, 3, 4])
+def test_sumcheck_golden_transcripts_on_card(dev, comp):
+    words, challenges = protocol_inputs(20, comp, mt19937_stream)
+    messages = transcript(Sumcheck(words, comp, 20, device=dev), challenges)
+    V.check_transcript(messages, challenges, comp + 1)
+    assert transcript_md5(messages) == SUMCHECK_TRANSCRIPT_MD5[20][comp]
