@@ -7,19 +7,25 @@ jax.
 
 Ported so far: the bit-sliced GF(2^128) additive NTT (AdditiveNTT128, the
 fused stage-group path) with its host foundations, the standalone
-bit-sliced multiply (ntt/cuda_kernels.mul_tiles), and the bit-sliced
+bit-sliced multiply (ntt/cuda_kernels.mul_tiles), the bit-sliced
 GF(2^128) sumcheck prover (Sumcheck, with its round and challenge-fold
 kernels in sumcheck/cuda_round.py and the host verifier in
-sumcheck/verifier.py).
+sumcheck/verifier.py), and the compact GF(2^32) additive NTT
+(AdditiveNTT, with the lane-group transpose and stage-group kernels of
+ntt/cuda_fused32.py on its fused path, the SWAR multiply of
+fields/tower_simd.py on its compact path, and the scalar oracle in
+ntt/reference.py).
 """
 
-from .fields import bitsliced, tower_scalar
+from .fields import bitsliced, tower_scalar, tower_simd
 from .layout.bitslicing import bitslice_transpose, bitslice_untranspose
+from .ntt.additive import AdditiveNTT
 from .ntt.additive_bitsliced import AdditiveNTT128
 from .ntt.nttdata import DataOrder, NTTData
 from .sumcheck.prover import Sumcheck
 
 __all__ = [
+    "AdditiveNTT",
     "AdditiveNTT128",
     "DataOrder",
     "NTTData",
@@ -28,6 +34,7 @@ __all__ = [
     "bitslice_untranspose",
     "bitsliced",
     "tower_scalar",
+    "tower_simd",
 ]
 
 __version__ = "0.1.0"

@@ -4,7 +4,9 @@ Neither the transform nor the prover has weights.  The transform's state is
 the twiddle rows and the per-group parity-mask tables: ``tables_from_jax``
 turns the tuple that ``binius_ntt_tpu.ntt.pallas_fused.build_tables``
 returns into the port's ``cuda_fused.build_tables`` form, so a test can
-feed both packages the same tables.  The sumcheck prover's state is its
+feed both packages the same tables; ``tables32_from_jax`` does the same
+for the GF(2^32) transform's ``pallas_fused32.build_tables32``.  The
+sumcheck prover's state is its
 round and its folded evaluations: ``sumcheck_state_from_jax`` turns the
 dict of ``binius_ntt_tpu.sumcheck.prover.Sumcheck.state_dict()`` into the
 port's, so a protocol begun in JAX can finish in the port.  This module
@@ -17,7 +19,7 @@ import numpy as np
 
 from .utils.bits import to_torch
 
-__all__ = ["tables_from_jax", "sumcheck_state_from_jax"]
+__all__ = ["tables_from_jax", "tables32_from_jax", "sumcheck_state_from_jax"]
 
 
 def tables_from_jax(jax_tables, device=None):
@@ -31,6 +33,20 @@ def tables_from_jax(jax_tables, device=None):
                     None if lanes is None
                     else to_torch(np.asarray(lanes), device),
                     tuple(bool(z) for z in zero_flags)))
+    return tuple(out)
+
+
+def tables32_from_jax(jax_tables, device=None):
+    """(t0, k, include_low, tabs) per group of the JAX
+    ``pallas_fused32.build_tables32``, tabs a dict of arrays plus ``zero``
+    -> the same tuple with int32 tensors on ``device``
+    (``cuda_fused32.build_tables32`` form)."""
+    out = []
+    for (t0, k, include_low, tabs) in jax_tables:
+        port = {name: to_torch(np.asarray(v), device)
+                for name, v in tabs.items() if name != "zero"}
+        port["zero"] = tuple(bool(z) for z in tabs["zero"])
+        out.append((int(t0), int(k), bool(include_low), port))
     return tuple(out)
 
 

@@ -17,9 +17,10 @@
 // leaf product runs in 255 registers without spills, the build takes 16 s
 // and the same groups 34.8 ms (40.0 ms at 4, 52.7 ms at 3).
 //
-// tower_mul128 is the one entry point the kernels call.  It is out of line
-// so that a kernel with several call sites carries a single copy of the
-// circuit.
+// tower_mul128 is the GF(2^128) entry point.  It is out of line so that a
+// kernel with several call sites carries a single copy of the circuit.
+// tower_mul32 is the GF(2^32) one (3^5 = 243 AND + the combine XORs): it
+// is inline, with no outlined level, at each of its call sites.
 #pragma once
 
 #include <cstdint>
@@ -102,4 +103,12 @@ static __device__ __noinline__ void tower_mul128(const uint32_t* a,
                                                  const uint32_t* b,
                                                  uint32_t* z) {
   tower::mul_body<7>(a, b, z);
+}
+
+// z = a * b over 32 planes (GF(2^32), 32 products per call).
+static __device__ __forceinline__ void tower_mul32(const uint32_t* a,
+                                                   const uint32_t* b,
+                                                   uint32_t* z) {
+  static_assert(tower::TOWER_INLINE_H >= 5, "GF(2^32) must stay inline");
+  tower::mul<5>(a, b, z);
 }

@@ -30,7 +30,25 @@ run with a non-zero exit and no result line:
   9. sumcheck_timing — the first round's round and fold at 2^24, each held
      word-equal to its plain version on the same input and then timed
      beside it (CUDA events), and the whole protocol from device-resident
-     input (host clock with a synchronise), C = 2, 3, 4.
+     input (host clock with a synchronise), C = 2, 3, 4;
+ 10. ntt32_kernels — the GF(2^32) NTT's kernels vs their plain versions:
+     bitslice_lane_groups on 2^17 random rows (and its own inverse), and
+     stage_group32 group by group at (16, 0) and (16, 2) under the
+     production plan and at (7, 0), (7, 2), (11, 4) and (13, 2) under a
+     forced multi-group plan (KB = KU = 2), each chained output held
+     to the upstream golden MD5 where one exists;
+ 11. ntt32_main — the third path: AdditiveNTT(24, r).apply on mt19937
+     input for r = 0, 2, held to the upstream golden MD5 digests
+     (tests/golden_hashes.py), with every launch counter reset just before
+     and read just after;
+ 12. ntt32_timing — at 2^24, input on the device: first, for r = 0 and
+     2, both kernels held word-equal to their plain versions at the main
+     path's shapes (the lane-group transpose on the 2^17 input rows and on
+     the cosets * 2^17 output rows, stage_group32 group by group); then,
+     with CUDA events, the stage-group chain, kernel vs plain, at r = 0 and
+     2; the lane-group transpose, kernel vs plain; apply at r = 0 and 2;
+     and the compact torch path (use_fused=False) as the whole-transform
+     plain figure.
 
 Then three lines: the kernels as JSON, the card's name and power limit
 from nvidia-smi, and the result line
@@ -57,10 +75,12 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-from binius_ntt_tpu_torch import AdditiveNTT128, Sumcheck, _build  # noqa: E402
+from binius_ntt_tpu_torch import (  # noqa: E402
+    AdditiveNTT, AdditiveNTT128, Sumcheck, _build)
 from binius_ntt_tpu_torch.layout.bitslicing import (  # noqa: E402
     bitslice_transpose, bitslice_untranspose)
 from binius_ntt_tpu_torch.ntt import cuda_fused as cf  # noqa: E402
+from binius_ntt_tpu_torch.ntt import cuda_fused32 as cf32  # noqa: E402
 from binius_ntt_tpu_torch.ntt import cuda_kernels as ck  # noqa: E402
 from binius_ntt_tpu_torch.ntt.additive import (  # noqa: E402
     precompute_subspace_evals)
@@ -76,7 +96,8 @@ SEED = 0xDEADBEEF
 W = 128
 SUMCHECK_SEED = 0x5C0024        # the 2^24 sumcheck inputs and challenges
 COMPS = (2, 3, 4)               # the reference's composition sizes
-COUNTED = (ck.mul_tiles, cf.stage_group, cr.round_kernel, cr.fold_kernel)
+COUNTED = (ck.mul_tiles, cf.stage_group, cr.round_kernel, cr.fold_kernel,
+           cf32.bitslice_lane_groups, cf32.stage_group32)
 
 
 def say(phase: str, msg: str) -> None:
@@ -110,6 +131,10 @@ def load_test_file(name: str):
 
 def golden_table():
     return load_test_file("golden_hashes_oracle").ADDITIVE_NTT128_HASHES
+
+
+def golden32_table():
+    return load_test_file("golden_hashes").ADDITIVE_NTT_HASHES
 
 
 def reset_counts() -> None:
@@ -445,6 +470,188 @@ def phase_sumcheck_timing(dev, words, challenges, worst,
     return out
 
 
+def words32(log_h: int, log_rate: int) -> np.ndarray:
+    return mt19937_stream(SEED + log_h + log_rate, 1 << log_h)
+
+
+def phase_ntt32_kernels(dev, golden32) -> dict:
+    """Both GF(2^32) kernels vs their plain versions; returns the largest
+    error of each."""
+    rng = np.random.default_rng(SEED + 32)
+    rows = 1 << 17
+    x = to_torch(rng.integers(0, 1 << 32, (rows, W), dtype=np.uint32), dev)
+    got = cf32.bitslice_lane_groups(x)
+    err_t = max_abs_err(got, cf32.bitslice_lane_groups_plain(x))
+    back = max_abs_err(cf32.bitslice_lane_groups(got), x)
+    require(err_t == 0 and back == 0, f"bitslice_lane_groups differs from "
+            f"its plain version ({err_t}) or from its inverse ({back})")
+    say("ntt32_kernels", f"bitslice_lane_groups on {rows} rows word-equal "
+        f"to plain and its own inverse (max_abs_err 0, tolerance exact)")
+
+    def check(log_h, log_rate):
+        tables = cf32.build_tables32(
+            precompute_subspace_evals(log_h, log_rate, 5), log_h, log_rate,
+            dev)
+        cosets = 1 << log_rate
+        packed = cf32.bitslice_lane_groups(
+            to_torch(words32(log_h, log_rate), dev).view(-1, W))
+        x = packed.repeat(cosets, 1).view(cosets, -1, W)
+        worst = 0
+        for (t0, k, low, tabs) in tables:
+            kw = dict(t0=t0, k=k, include_low=low, cosets=cosets,
+                      log_nbr=log_h - 7)
+            want = cf32.stage_group32_plain(x.clone(), tabs, **kw)
+            cf32.stage_group32(x, tabs, **kw)
+            torch.cuda.synchronize()
+            err = max_abs_err(x, want)
+            require(err == 0, f"stage_group32 (t0={t0}, k={k}, low={low}) "
+                    f"at ({log_h}, {log_rate}) differs from plain ({err})")
+            worst = max(worst, err)
+        digest = md5_words(cf32.bitslice_lane_groups(x.view(-1, W)))
+        want_digest = golden32.get(log_rate, {}).get(log_h)
+        if want_digest is not None:
+            require(digest == want_digest,
+                    f"({log_h}, {log_rate}) golden digest mismatch")
+        say("ntt32_kernels", f"stage_group32 ({log_h}, {log_rate}) plan "
+            f"{[(t0, k, low) for (t0, k, low, _) in tables]} word-equal to "
+            f"plain (max_abs_err {worst}, tolerance exact); digest "
+            f"{'golden' if want_digest else 'not in the golden table'}")
+        return worst
+
+    worst = max(check(16, 0), check(16, 2))
+    saved = (cf32.KB, cf32.KU)
+    cf32.KB, cf32.KU = 2, 2                  # multi-group seams and cosets
+    try:
+        for log_h, log_rate in ((7, 0), (7, 2), (11, 4), (13, 2)):
+            worst = max(worst, check(log_h, log_rate))
+    finally:
+        cf32.KB, cf32.KU = saved
+    return {"bitslice_lane_groups": max(err_t, back), "stage_group32": worst}
+
+
+def phase_ntt32_main(dev, golden32):
+    log_h = 24
+    t0 = time.perf_counter()
+    runs = [(r, AdditiveNTT(log_h, r, device=dev), words32(log_h, r))
+            for r in (0, 2)]
+    say("ntt32_main", f"set-up (twiddles, tables, mt19937 inputs) "
+        f"{time.perf_counter() - t0:.1f} s host")
+
+    reset_counts()
+    outs = []
+    for log_rate, ntt, words in runs:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = ntt.apply(words)
+        torch.cuda.synchronize()
+        outs.append((log_rate, out, time.perf_counter() - t1))
+    launches = {"bitslice_lane_groups": cf32.bitslice_lane_groups.launches,
+                "stage_group32": cf32.stage_group32.launches}
+
+    for log_rate, out, sec in outs:
+        require(tuple(out.shape) == (1 << (log_h + log_rate),),
+                f"output shape {tuple(out.shape)}")
+        digest = md5_words(out)
+        require(digest == golden32[log_rate][log_h],
+                f"(24, {log_rate}) digest {digest} != golden "
+                f"{golden32[log_rate][log_h]}")
+        say("ntt32_main", f"AdditiveNTT(24, {log_rate}).apply: golden MD5 "
+            f"{digest} matches; {sec:.3f} s host clock incl. upload")
+    n_groups = sum(len(ntt.tables) for _, ntt, _ in runs)
+    require(launches["bitslice_lane_groups"] == 4
+            and launches["stage_group32"] == n_groups,
+            f"expected 4 lane-group and {n_groups} stage-group launches, "
+            f"got {launches}")
+    say("ntt32_main", f"launches {launches}")
+    return launches, runs
+
+
+def check_ntt32_at_main_shapes(ntt, x_dev) -> dict:
+    """Both GF(2^32) kernels vs their plain versions on the main path's
+    2^24 input, at the shapes apply gives them: the lane-group transpose
+    on the input rows and on the cosets * 2^17 output rows, and
+    stage_group32 group by group under the production plan.  Returns the
+    largest error of each."""
+    cosets = 1 << ntt.log_rate
+    rows = x_dev.view(-1, W)
+    packed = cf32.bitslice_lane_groups(rows)
+    err_in = max_abs_err(packed, cf32.bitslice_lane_groups_plain(rows))
+    require(err_in == 0, f"bitslice_lane_groups on the ({ntt.log_h}, "
+            f"{ntt.log_rate}) input differs from plain ({err_in})")
+    x = packed.repeat(cosets, 1).view(cosets, -1, W)
+    x_plain = x.clone()
+    worst = 0
+    for (t0, k, low, tabs) in ntt.tables:
+        kw = dict(t0=t0, k=k, include_low=low, cosets=cosets,
+                  log_nbr=ntt.log_h - 7)
+        cf32.stage_group32(x, tabs, **kw)
+        cf32.stage_group32_plain(x_plain, tabs, **kw)
+        err = max_abs_err(x, x_plain)
+        require(err == 0, f"stage_group32 (t0={t0}, k={k}, low={low}) at "
+                f"({ntt.log_h}, {ntt.log_rate}) differs from plain ({err})")
+        worst = max(worst, err)
+    del x_plain
+    rows_out = x.view(-1, W)
+    err_out = max_abs_err(cf32.bitslice_lane_groups(rows_out),
+                          cf32.bitslice_lane_groups_plain(rows_out))
+    require(err_out == 0, f"bitslice_lane_groups on the ({ntt.log_h}, "
+            f"{ntt.log_rate}) output differs from plain ({err_out})")
+    say("ntt32_timing", f"({ntt.log_h}, {ntt.log_rate}): bitslice_lane_groups on "
+        f"{rows.shape[0]} input and {rows_out.shape[0]} output rows and "
+        f"stage_group32 at every group "
+        f"{[(t0, k, low) for (t0, k, low, _) in ntt.tables]} word-equal to "
+        f"plain (max_abs_err {max(err_in, err_out, worst)}, tolerance "
+        f"exact)")
+    return {"bitslice_lane_groups": max(err_in, err_out),
+            "stage_group32": worst}
+
+
+def phase_ntt32_timing(dev, runs) -> dict:
+    out = {"chain": {}, "apply": {}, "err": {}}
+    for log_rate, ntt, words in runs:
+        x_dev = to_torch(words, dev)
+        cosets = 1 << log_rate
+        for name, err in check_ntt32_at_main_shapes(ntt, x_dev).items():
+            out["err"][name] = max(out["err"].get(name, 0), err)
+        x = cf32.bitslice_lane_groups(x_dev.view(-1, W)).repeat(
+            cosets, 1).view(cosets, -1, W)
+
+        def groups(fn):
+            for (t0, k, low, tabs) in ntt.tables:
+                fn(x, tabs, t0=t0, k=k, include_low=low, cosets=cosets,
+                   log_nbr=ntt.log_h - 7)
+
+        ms = device_time(groups, cf32.stage_group32) * 1e3
+        torch.cuda.reset_peak_memory_stats()
+        plain_ms = device_time(groups, cf32.stage_group32_plain, warmup=1,
+                               reps=3) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        apply_ms = device_time(ntt.apply, x_dev) * 1e3
+        out["chain"][log_rate] = {"ms": ms, "plain_ms": plain_ms}
+        out["apply"][log_rate] = apply_ms
+        plan = [(t0, k, low) for (t0, k, low, _) in ntt.tables]
+        say("ntt32_timing", f"2^24 rate {log_rate} stage groups {plan}: "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (peak "
+            f"{peak / 2**30:.1f} GiB); apply from device words "
+            f"{apply_ms:.3f} ms")
+
+    rng = np.random.default_rng(SEED + 33)
+    x = to_torch(rng.integers(0, 1 << 32, (1 << 17, W), dtype=np.uint32),
+                 dev)
+    out["lanes"] = {
+        "ms": device_time(cf32.bitslice_lane_groups, x) * 1e3,
+        "plain_ms": device_time(cf32.bitslice_lane_groups_plain, x, warmup=1,
+                                reps=3) * 1e3}
+    compact = AdditiveNTT(24, 0, use_fused=False, device=dev)
+    out["compact_ms"] = device_time(compact.apply, to_torch(runs[0][2], dev),
+                                    warmup=1, reps=3) * 1e3
+    say("ntt32_timing", f"bitslice_lane_groups on 2^17 rows (64 MB): kernel "
+        f"{out['lanes']['ms']:.3f} ms, plain {out['lanes']['plain_ms']:.3f} "
+        f"ms; compact torch path AdditiveNTT(24, 0, use_fused=False).apply "
+        f"{out['compact_ms']:.3f} ms")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an sm_90 "
@@ -462,6 +669,13 @@ def main() -> int:
     sc_err = phase_sumcheck_kernels(dev)
     sc_launches, words, challenges = phase_sumcheck_main(dev, sc)
     sc_timing = phase_sumcheck_timing(dev, words, challenges, sc_err)
+    t32 = time.perf_counter()
+    golden32 = golden32_table()
+    n32_err = phase_ntt32_kernels(dev, golden32)
+    n32_launches, n32_runs = phase_ntt32_main(dev, golden32)
+    n32_timing = phase_ntt32_timing(dev, n32_runs)
+    say("ntt32_timing", f"phases 10-12 took {time.perf_counter() - t32:.1f} "
+        f"s")
 
     def sumcheck_entry(kind: str, line: int) -> dict:
         return {
@@ -486,7 +700,29 @@ def main() -> int:
             "replaces": "binius_ntt_tpu/ntt/pallas_fused.py:341",
             "launches": launches["stage_group"], "max_abs_err": sg_err,
             "ms": timing["ms"], "plain_ms": timing["plain_ms"]},
-            sumcheck_entry("round", 175), sumcheck_entry("fold", 294)],
+            sumcheck_entry("round", 175), sumcheck_entry("fold", 294),
+            {"name": "bitslice_lane_groups", "route": "cuda",
+             "source": "binius_ntt_tpu_torch/csrc/bitslice_lane_groups.cu",
+             "replaces": "binius_ntt_tpu/ntt/pallas_fused32.py:130",
+             "launches": n32_launches["bitslice_lane_groups"],
+             "max_abs_err": max(n32_err["bitslice_lane_groups"],
+                                n32_timing["err"]["bitslice_lane_groups"]),
+             "ms": n32_timing["lanes"]["ms"],
+             "plain_ms": n32_timing["lanes"]["plain_ms"],
+             "shape": "2^17 rows of 128 words (2^24 compact words)"},
+            {"name": "stage_group32", "route": "cuda",
+             "source": "binius_ntt_tpu_torch/csrc/stage_group32.cu",
+             "replaces": "binius_ntt_tpu/ntt/pallas_fused32.py:400",
+             "launches": n32_launches["stage_group32"],
+             "max_abs_err": max(n32_err["stage_group32"],
+                                n32_timing["err"]["stage_group32"]),
+             "ms": n32_timing["chain"][0]["ms"],
+             "plain_ms": n32_timing["chain"][0]["plain_ms"],
+             "shape": "every group of the 2^24 rate-0 transform; "
+                      "by_rate has rate 2",
+             "by_rate": n32_timing["chain"],
+             "apply_ms_by_rate": n32_timing["apply"],
+             "compact_plain_apply_ms": n32_timing["compact_ms"]}],
         # built and checked, but on neither of the port's paths.  In the
         # reference it runs in the TPU sumcheck's small rounds (the jnp
         # kernels below the Pallas tile gate multiply through it); the

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, against their plain versions, and
-the NTT and sumcheck paths on the card against their golden digests.
+the NTT (GF(2^128) and GF(2^32)) and sumcheck paths on the card against
+their golden digests.
 
 Every test here needs an sm_90 GPU and nvcc; it is marked ``cuda`` and skips
 elsewhere.  The file imports no JAX, so it also runs on a machine with only
@@ -14,13 +15,15 @@ import numpy as np
 import pytest
 import torch
 
+from golden_hashes import ADDITIVE_NTT_HASHES
 from golden_hashes_oracle import ADDITIVE_NTT128_HASHES
 from test_torch_sumcheck_golden import (SUMCHECK_TRANSCRIPT_MD5,
                                         protocol_inputs, transcript,
                                         transcript_md5)
-from binius_ntt_tpu_torch import AdditiveNTT128, Sumcheck
+from binius_ntt_tpu_torch import AdditiveNTT, AdditiveNTT128, Sumcheck
 from binius_ntt_tpu_torch.layout.bitslicing import bitslice_transpose
 from binius_ntt_tpu_torch.ntt import cuda_fused as cf
+from binius_ntt_tpu_torch.ntt import cuda_fused32 as cf32
 from binius_ntt_tpu_torch.ntt import cuda_kernels as ck
 from binius_ntt_tpu_torch.ntt.additive import precompute_subspace_evals
 from binius_ntt_tpu_torch.sumcheck import cuda_round as cr
@@ -190,3 +193,84 @@ def test_sumcheck_golden_transcripts_on_card(dev, comp):
     messages = transcript(Sumcheck(words, comp, 20, device=dev), challenges)
     V.check_transcript(messages, challenges, comp + 1)
     assert transcript_md5(messages) == SUMCHECK_TRANSCRIPT_MD5[20][comp]
+
+
+def _md5(t) -> str:
+    return hashlib.md5(to_numpy(t).astype("<u4").tobytes()).hexdigest()
+
+
+@pytest.mark.parametrize("rows", [1, 3, 1 << 12])
+def test_bitslice_lane_groups_kernel_matches_plain(dev, rows):
+    x = _rand(4, (rows, 128), dev)
+    before = cf32.bitslice_lane_groups.launches
+    got = cf32.bitslice_lane_groups(x)
+    torch.cuda.synchronize()
+    assert cf32.bitslice_lane_groups.launches == before + 1
+    assert torch.equal(got, cf32.bitslice_lane_groups_plain(x))
+    assert torch.equal(cf32.bitslice_lane_groups(got), x)
+
+
+@pytest.mark.parametrize("log_h,log_rate,kb,ku", [
+    (7, 0, 2, 2), (7, 2, 2, 2), (11, 4, 2, 2), (13, 2, 2, 2), (12, 1, 3, 1),
+    (16, 2, None, None), (15, 4, None, None),
+])
+def test_stage_group32_kernel_matches_plain(dev, log_h, log_rate, kb, ku,
+                                            monkeypatch):
+    if kb is not None:                  # else the production plan
+        monkeypatch.setattr(cf32, "KB", kb)
+        monkeypatch.setattr(cf32, "KU", ku)
+    rows = precompute_subspace_evals(log_h, log_rate, 5)
+    tables = cf32.build_tables32(rows, log_h, log_rate, dev)
+    cosets = 1 << log_rate
+    words = mt19937_stream(0xDEADBEEF + log_h + log_rate, 1 << log_h)
+    packed = cf32.bitslice_lane_groups(to_torch(words, dev).view(-1, 128))
+    x = packed.repeat(cosets, 1).view(cosets, -1, 128)
+    before = cf32.stage_group32.launches
+    for (t0, k, low, tabs) in tables:
+        kw = dict(t0=t0, k=k, include_low=low, cosets=cosets,
+                  log_nbr=log_h - 7)
+        want = cf32.stage_group32_plain(x.clone(), tabs, **kw)
+        assert cf32.stage_group32(x, tabs, **kw) is x
+        torch.cuda.synchronize()
+        assert torch.equal(x, want)
+    assert cf32.stage_group32.launches == before + len(tables)
+    if log_rate in ADDITIVE_NTT_HASHES:         # no upstream rate-4 table
+        out = cf32.bitslice_lane_groups(x.view(-1, 128)).reshape(-1)
+        assert _md5(out) == ADDITIVE_NTT_HASHES[log_rate][log_h]
+
+
+@pytest.mark.parametrize("log_h,log_rate", [(7, 0), (12, 0), (10, 2),
+                                            (16, 2), (20, 0)])
+def test_ntt32_golden_on_card(dev, log_h, log_rate):
+    ntt = AdditiveNTT(log_h, log_rate, device=dev)
+    before = (cf32.bitslice_lane_groups.launches,
+              cf32.stage_group32.launches)
+    out = ntt.apply(mt19937_stream(0xDEADBEEF + log_h + log_rate,
+                                   1 << log_h))
+    assert out.device.type == "cuda"
+    assert _md5(out) == ADDITIVE_NTT_HASHES[log_rate][log_h]
+    assert (cf32.bitslice_lane_groups.launches,
+            cf32.stage_group32.launches) == (before[0] + 2,
+                                             before[1] + len(ntt.tables))
+
+
+def test_ntt32_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    rows = precompute_subspace_evals(9, 0, 5)
+    (t0, k, low, tabs), = cf32.build_tables32(rows, 9, 0, dev)
+    kw = dict(t0=t0, k=k, include_low=low, cosets=1, log_nbr=2)
+    x = _rand(5, (1, 4, 128), dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        cf32.stage_group32(_rand(5, (1, 4, 256), dev)[:, :, ::2], tabs, **kw)
+    with pytest.raises(ValueError, match="int32"):
+        cf32.stage_group32(x.long(), tabs, **kw)
+    with pytest.raises(ValueError, match="mtile"):
+        cf32.stage_group32(x, dict(tabs, mtile=tabs["mtile"].cpu()), **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        cf32.bitslice_lane_groups(x.view(4, 128)[::2])
+    with pytest.raises(ValueError, match="int32"):
+        cf32.bitslice_lane_groups(x.view(4, 128).long())
+    with pytest.raises(ValueError, match="expected"):
+        cf32.bitslice_lane_groups(x.view(8, 64))
+    ntt = AdditiveNTT(9, 0, device=dev)
+    with pytest.raises(ValueError, match="int32 words on"):
+        ntt.apply(torch.zeros(512, dtype=torch.int32))
