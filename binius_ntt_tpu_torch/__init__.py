@@ -14,7 +14,14 @@ sumcheck/verifier.py), and the compact GF(2^32) additive NTT
 (AdditiveNTT, with the lane-group transpose and stage-group kernels of
 ntt/cuda_fused32.py on its fused path, the SWAR multiply of
 fields/tower_simd.py on its compact path, and the scalar oracle in
-ntt/reference.py).
+ntt/reference.py), and the prime-field paths: the radix-2 BB31 NTT
+(NTTRadix2, with the stage-group kernel of ntt/cuda_fused_bb31.py) and the
+QM31 sumcheck prover (PrimeFieldSumcheck, with its round and fold kernels
+in sumcheck/cuda_prime_round.py).
+
+Every entry point runs on ``cuda:0`` unless the caller passes another
+``device``; off the card pass ``device="cpu"`` to run the kernels' plain
+torch versions.
 """
 
 from .fields import bitsliced, tower_scalar, tower_simd
@@ -22,6 +29,8 @@ from .layout.bitslicing import bitslice_transpose, bitslice_untranspose
 from .ntt.additive import AdditiveNTT
 from .ntt.additive_bitsliced import AdditiveNTT128
 from .ntt.nttdata import DataOrder, NTTData
+from .ntt.radix2 import NTTRadix2
+from .sumcheck.prime_field import PrimeFieldSumcheck
 from .sumcheck.prover import Sumcheck
 
 __all__ = [
@@ -29,6 +38,8 @@ __all__ = [
     "AdditiveNTT128",
     "DataOrder",
     "NTTData",
+    "NTTRadix2",
+    "PrimeFieldSumcheck",
     "Sumcheck",
     "bitslice_transpose",
     "bitslice_untranspose",

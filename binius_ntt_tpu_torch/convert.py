@@ -9,8 +9,12 @@ for the GF(2^32) transform's ``pallas_fused32.build_tables32``.  The
 sumcheck prover's state is its
 round and its folded evaluations: ``sumcheck_state_from_jax`` turns the
 dict of ``binius_ntt_tpu.sumcheck.prover.Sumcheck.state_dict()`` into the
-port's, so a protocol begun in JAX can finish in the port.  This module
-imports no JAX: each array goes through ``np.asarray``.
+port's, so a protocol begun in JAX can finish in the port.  The prime-field
+paths: ``radix2_twiddles_from_jax`` takes the bit-reversed Montgomery
+twiddle table of a JAX ``NTTRadix2`` (its ``_tw_mont``), and
+``prime_sumcheck_state_from_jax`` the dict of a JAX
+``PrimeFieldSumcheck.state_dict()``.  This module imports no JAX: each
+array goes through ``np.asarray``.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ import numpy as np
 
 from .utils.bits import to_torch
 
-__all__ = ["tables_from_jax", "tables32_from_jax", "sumcheck_state_from_jax"]
+__all__ = ["tables_from_jax", "tables32_from_jax", "sumcheck_state_from_jax",
+           "radix2_twiddles_from_jax", "prime_sumcheck_state_from_jax"]
 
 
 def tables_from_jax(jax_tables, device=None):
@@ -59,3 +64,20 @@ def sumcheck_state_from_jax(d: dict, device=None) -> dict:
         out[k] = (None if d[k] is None
                   else to_torch(np.asarray(d[k], dtype=np.uint32), device))
     return out
+
+
+def radix2_twiddles_from_jax(ntt_jax, device=None):
+    """A JAX ``NTTRadix2``'s (n/2,) bit-reversed Montgomery twiddles ->
+    an int32 tensor on ``device`` (the ``tw`` of the port's
+    ``cuda_fused_bb31`` group functions)."""
+    return to_torch(np.asarray(ntt_jax._tw_mont, dtype=np.uint32), device)
+
+
+def prime_sumcheck_state_from_jax(d: dict, device=None) -> dict:
+    """A JAX ``PrimeFieldSumcheck.state_dict()`` -> the port's, with the
+    (2, rows, 4) evaluations as an int32 tensor on ``device`` (resume with
+    ``binius_ntt_tpu_torch.sumcheck.prime_field.PrimeFieldSumcheck
+    .from_state_dict``)."""
+    return {"round": int(d["round"]),
+            "evals": to_torch(np.asarray(d["evals"], dtype=np.uint32),
+                              device)}

@@ -4,9 +4,10 @@
 // :210), whose body is the straight-line multiply _mul_vmem_sl/_mul_planes.
 //
 // Bound on this card: integer ALU, then local memory.  A row is 32 products
-// for 3 x 512 bytes of HBM traffic and 13,448 word ops, ~8.8 ops per byte,
-// against a balance of ~5 for the H100 SXM (132 SMs x 64 int32 lanes x
-// 1.98 GHz over 3.35 TB/s; estimate from the data sheet).  The circuit
+// for 3 x 512 bytes of HBM traffic and 10,326 three-input LOP3 operations
+// (13,448 two-input gates), ~6.7 ops per byte, against a balance of ~5 for
+// the H100 SXM (132 SMs x 64 int32 lanes x 1.98 GHz over 3.35 TB/s;
+// estimate from the data sheet).  The circuit
 // keeps ~510 planes live, so a thread spills to local memory; the first
 // design accepts that.
 //

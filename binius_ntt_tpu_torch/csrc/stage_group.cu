@@ -19,7 +19,8 @@
 // lanes rows are pre-permuted for that loop).
 //
 // Bound on this card: integer ALU, then local memory.  Every butterfly is
-// one 128-plane multiply, 13,448 word ops for 2 KB of row traffic that
+// one 128-plane multiply, 10,326 three-input LOP3 operations (13,448
+// two-input gates; chip_smoke.tower_mul_ops) for 2 KB of row traffic that
 // stays in L2 between stages; the circuit spills to local memory (see
 // tower_mul.cuh).
 //

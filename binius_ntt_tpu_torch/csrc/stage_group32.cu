@@ -23,8 +23,9 @@
 //     multiply, with lpl[i] adding the per-lane part (_cj_stages32).
 //
 // Bound on this card: integer ALU.  A butterfly is one GF(2^32) bit-sliced
-// multiply (tower_mul32: 243 AND plus the combine XORs, about 1,500 word
-// ops) against 512 bytes of row traffic, which stays in L2 between stages
+// multiply (tower_mul32: 243 AND plus the combine XORs, 1,388 two-input
+// gates, 1,059 three-input LOP3 operations) against 512 bytes of row
+// traffic, which stays in L2 between stages
 // as long as the tiles of all resident blocks fit in it (the plan in
 // ntt/cuda_fused32.py).
 //

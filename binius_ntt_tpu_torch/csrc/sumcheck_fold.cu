@@ -20,8 +20,8 @@
 // instance's spills from 352 to 2,724 bytes and its time by half.
 //
 // Bound on this card: integer ALU, then local memory.  A row costs one
-// multiply of 13,448 word ops for 1.5 KB of traffic (~9 ops per byte,
-// above the card's ~5); the multiply spills (tower_mul.cuh).
+// multiply of 10,326 LOP3 operations for 1.5 KB of traffic (~6.7 ops per
+// byte, above the card's ~5); the multiply spills (tower_mul.cuh).
 //
 // Design: one thread per (column, lower row).  The fold runs in place at
 // the original stride, as the reference CUDA does: a thread writes only row

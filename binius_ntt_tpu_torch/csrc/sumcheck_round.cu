@@ -24,9 +24,10 @@
 // batch gives the round's message in both modes.
 //
 // Bound on this card: integer ALU, then local memory.  A row pair costs
-// (C - 1) * (C + 1) multiplies of 13,448 word ops for 2 * C * 512 bytes of
-// reads: ~20 ops per byte at C = 2, ~49 at C = 4, against a balance of ~5
-// for this card; the multiply spills to local memory (tower_mul.cuh).
+// (C - 1) * (C + 1) multiplies of 10,326 LOP3 operations (13,448 two-input
+// gates) for 2 * C * 512 bytes of reads: ~15 ops per byte at C = 2, ~38 at
+// C = 4, against a balance of ~5 for this card; the multiply spills to
+// local memory (tower_mul.cuh).
 //
 // Design: one thread per row pair, grid-stride over the live half, column
 // outer like the reference's unrolled body: each column is loaded once and

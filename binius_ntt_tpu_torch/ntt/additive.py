@@ -23,6 +23,7 @@ import torch
 from ..fields import tower_scalar as ts
 from ..fields.tower_simd import mul_packed
 from ..utils.bits import to_torch
+from ..utils.capabilities import default_device
 from . import cuda_fused32
 from .nttdata import DataOrder, NTTData
 
@@ -81,7 +82,8 @@ class AdditiveNTT(torch.nn.Module):
 
     Supports height <= 5 (uint32 storage, like the upstream
     ``FanPaarTowerField<5>`` instantiation).  The tables are buffers of
-    this module, made on ``device``; every call runs on that device.
+    this module, made on ``device`` (default ``cuda:0``; off the card pass
+    ``device="cpu"``); every call runs on that device.
 
     Two paths, chosen by configuration as the reference chooses them:
 
@@ -118,6 +120,7 @@ class AdditiveNTT(torch.nn.Module):
         self.log_h = log_h
         self.log_rate = log_rate
         self.height = height
+        device = default_device(device)
         rows = precompute_subspace_evals(log_h, log_rate, height)
         # None: fused wherever the packed layout applies, on any device
         self.use_fused = (use_fused is not False and height == 5

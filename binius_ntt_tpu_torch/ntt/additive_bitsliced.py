@@ -24,6 +24,7 @@ import torch
 
 from ..layout.bitslicing import bitslice_transpose, bitslice_untranspose
 from ..utils.bits import to_torch
+from ..utils.capabilities import default_device
 from . import cuda_fused
 from .additive import precompute_subspace_evals
 from .nttdata import DataOrder, NTTData
@@ -38,9 +39,10 @@ IPV = W // 32              # 4 words per compact value
 class AdditiveNTT128(torch.nn.Module):
     """Additive NTT over GF(2^128), bit-sliced layout.
 
-    The stage-group tables are buffers of this module, made on ``device``;
-    every call runs on that device.  On a CUDA device the groups run the
-    CUDA kernel, on the CPU its plain torch version.
+    The stage-group tables are buffers of this module, made on ``device``
+    (default ``cuda:0``; off the card pass ``device="cpu"``); every call
+    runs on that device.  On a CUDA device the groups run the CUDA kernel,
+    on the CPU its plain torch version.
 
     ``apply`` is the transform (it shadows ``nn.Module.apply``, which this
     module, having no submodules, does not need).
@@ -55,6 +57,7 @@ class AdditiveNTT128(torch.nn.Module):
             raise ValueError("log_rate must be in [0, 4]")
         self.log_h = log_h
         self.log_rate = log_rate
+        device = default_device(device)
         rows = precompute_subspace_evals(log_h, log_rate, HEIGHT)
         self._groups = []
         tables = cuda_fused.build_tables(rows, log_h, log_rate, device)

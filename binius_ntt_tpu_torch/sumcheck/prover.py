@@ -35,6 +35,7 @@ import torch
 
 from ..layout.bitslicing import bitslice_transpose, bitslice_untranspose
 from ..utils.bits import to_numpy, to_torch
+from ..utils.capabilities import default_device
 from . import cuda_round
 
 __all__ = ["Sumcheck"]
@@ -56,11 +57,16 @@ def _compute_sum(batch: torch.Tensor) -> np.ndarray:
 
 def _as_words(a, device) -> torch.Tensor:
     """numpy uint32 or an int32 tensor -> a NEW int32 tensor on ``device``
-    (the folds work in place, so never on the caller's memory)."""
+    (the folds work in place, so never on the caller's memory).  For
+    device=None a tensor keeps its own device and numpy words go to the
+    default device (utils/capabilities.default_device)."""
     if isinstance(a, torch.Tensor):
         if a.dtype != torch.int32:
             raise ValueError(f"state words must be int32, got {a.dtype}")
+        if device is None:
+            device = a.device
     else:
+        device = default_device(device)
         a = to_torch(np.asarray(a, dtype=np.uint32))
     return a.to(device, copy=True)
 
@@ -80,7 +86,8 @@ class Sumcheck:
         of the state.
     data_is_transposed : the batches are already bit-sliced.
     device : where the state lives (default: the device of a tensor
-        ``evals``, the CPU for numpy words).
+        ``evals``; for numpy words ``cuda:0``, and off the card the caller
+        passes ``device="cpu"``).
     """
 
     def __init__(self, evals, composition_size: int, num_vars: int,
@@ -149,8 +156,8 @@ class Sumcheck:
     @classmethod
     def from_state_dict(cls, d: dict, device=None) -> "Sumcheck":
         """Resume from a state_dict (numpy uint32 or int32 tensor arrays,
-        copied) with the state on ``device`` (default: where the arrays
-        are, the CPU for numpy)."""
+        copied) with the state on ``device`` (default: where tensor arrays
+        are; ``cuda:0`` for numpy arrays)."""
         if d["device_evals"] is not None:
             state = _as_words(d["device_evals"], device)
         else:

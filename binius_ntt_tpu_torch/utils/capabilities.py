@@ -3,6 +3,10 @@
 The CUDA kernels of this package are built for ``sm_90a`` (Hopper) only, so
 the gate asks for a CUDA device of compute capability (9, 0) and raises
 otherwise.  It never falls back to the CPU.
+
+``default_device`` is what every entry point of the port calls for
+``device=None``: the first CUDA device, or a RuntimeError that asks for
+``device="cpu"`` where there is none.  Nothing picks the CPU silently.
 """
 
 from __future__ import annotations
@@ -11,7 +15,8 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["DeviceCapabilities", "check_capabilities", "REQUIRED_CAPABILITY"]
+__all__ = ["DeviceCapabilities", "check_capabilities", "default_device",
+           "REQUIRED_CAPABILITY"]
 
 REQUIRED_CAPABILITY = (9, 0)
 
@@ -45,3 +50,16 @@ def check_capabilities() -> DeviceCapabilities:
         memory_bytes=props.total_memory,
         capability=tuple(cap),
     )
+
+
+def default_device(device=None) -> torch.device:
+    """``device`` as a torch.device; for None, ``cuda:0``.  Raises
+    RuntimeError for None where there is no CUDA device: the CPU runs the
+    plain versions only when the caller asks for it."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card by "
+                           "default; pass device=\"cpu\" to run the plain "
+                           "versions on the CPU")
+    return torch.device("cuda", 0)

@@ -48,12 +48,45 @@ run with a non-zero exit and no result line:
      with CUDA events, the stage-group chain, kernel vs plain, at r = 0 and
      2; the lane-group transpose, kernel vs plain; apply at r = 0 and 2;
      and the compact torch path (use_fused=False) as the whole-transform
-     plain figure.
+     plain figure;
+ 13. bb31_kernels — the BB31 NTT's stage_group_r2 vs its plain version group
+     by group at log_n 1 .. 6 and 16 under the production plan and at log_n
+     7, 10 and 13 under a forced small plan (KB = KU = 2), each chained
+     output held to the upstream golden MD5 (tests/golden_hashes.py);
+ 14. bb31_main — the fourth path: NTTRadix2(137, 27, 24).apply and
+     NTTRadix2(137, 27, 27).apply on the upstream mt19937 inputs, held to
+     the golden MD5 digests, then the forward/inverse round trip at 2^24
+     (inverse with 137^-1, then 1/n) giving back the input mod P, with
+     every launch counter reset just before and read just after;
+ 15. bb31_timing — first the kernel held word-equal to plain group by
+     group at every shape of the main path (its 2^24 and 2^27 inputs and
+     plans); then at 2^24, input on the device, with CUDA events: the
+     chain, kernel vs plain; apply from device words; the first group with
+     and without its bit-reversing load; and the per-stage torch path (one
+     plain group over all 24 stages) as the whole-transform plain figure;
+ 16. qm31_kernels — the QM31 sumcheck round and fold kernels vs their plain
+     versions at every live row count of num_vars 12 and 20;
+ 17. qm31_main — the fifth path: PrimeFieldSumcheck on 2 x 2^24 mt19937 QM31
+     values mod P through all 24 rounds, every round held to the host
+     check, with every launch counter reset just before and read just
+     after; the same protocol through the plain versions must give the
+     same transcript; then the num_vars-20 transcript against the digest
+     the JAX package minted (tests/test_torch_prime_sumcheck_golden.py);
+ 18. qm31_timing — the first round's round and fold at 2^24, each held
+     word-equal to its plain version on the timed input and then timed
+     beside it (CUDA events), and the whole protocol from device-resident
+     state (host clock with a synchronise per round, median of 3).
 
 Then three lines: the kernels as JSON, the card's name and power limit
 from nvidia-smi, and the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Every comparison is exact word equality (GF(2) arithmetic has no rounding).
+Every comparison is exact word equality (finite-field arithmetic has no
+rounding).  Each kernel's bound_ms is the larger of its operations over
+their peak rate (the int32 pipe for the GF(2) circuits, counted as
+three-input LOP3 operations; the card's instruction rate for the
+prime-field kernels) and its bytes (each input read once, each output
+written once) over the memory rate, from the shapes of the timed call.  No
+single PyTorch call computes any of these functions, so library_ms is null.
 The script imports no JAX.
 """
 
@@ -76,16 +109,23 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 from binius_ntt_tpu_torch import (  # noqa: E402
-    AdditiveNTT, AdditiveNTT128, Sumcheck, _build)
+    AdditiveNTT, AdditiveNTT128, NTTRadix2, PrimeFieldSumcheck, Sumcheck,
+    _build)
+from binius_ntt_tpu_torch.fields import baby_bear as bb  # noqa: E402
 from binius_ntt_tpu_torch.layout.bitslicing import (  # noqa: E402
     bitslice_transpose, bitslice_untranspose)
 from binius_ntt_tpu_torch.ntt import cuda_fused as cf  # noqa: E402
 from binius_ntt_tpu_torch.ntt import cuda_fused32 as cf32  # noqa: E402
+from binius_ntt_tpu_torch.ntt import cuda_fused_bb31 as cfb  # noqa: E402
 from binius_ntt_tpu_torch.ntt import cuda_kernels as ck  # noqa: E402
 from binius_ntt_tpu_torch.ntt.additive import (  # noqa: E402
     precompute_subspace_evals)
+from binius_ntt_tpu_torch.sumcheck import (  # noqa: E402
+    cuda_prime_round as cpr)
 from binius_ntt_tpu_torch.sumcheck import cuda_round as cr  # noqa: E402
 from binius_ntt_tpu_torch.sumcheck import verifier  # noqa: E402
+from binius_ntt_tpu_torch.sumcheck.prime_field import (  # noqa: E402
+    check_transcript)
 from binius_ntt_tpu_torch.utils.benchlib import device_time  # noqa: E402
 from binius_ntt_tpu_torch.utils.bits import to_numpy, to_torch  # noqa: E402
 from binius_ntt_tpu_torch.utils.capabilities import (  # noqa: E402
@@ -96,8 +136,95 @@ SEED = 0xDEADBEEF
 W = 128
 SUMCHECK_SEED = 0x5C0024        # the 2^24 sumcheck inputs and challenges
 COMPS = (2, 3, 4)               # the reference's composition sizes
+QM31_SEED = 0x3131024            # the 2^24 QM31 inputs and challenges
 COUNTED = (ck.mul_tiles, cf.stage_group, cr.round_kernel, cr.fold_kernel,
-           cf32.bitslice_lane_groups, cf32.stage_group32)
+           cf32.bitslice_lane_groups, cf32.stage_group32, cfb.stage_group_r2,
+           cpr.round_kernel, cpr.fold_kernel)
+
+# The card's peaks for bound_ms (data-sheet estimates at 1.98 GHz): integer
+# logic on the int32 pipe (132 SMs x 64 lanes), the rate of the GF(2)
+# circuits' AND and XOR; the instruction rate (132 SMs x 4 warp
+# instructions a clock x 32 lanes), the ceiling of the prime-field
+# kernels' mixed work, whose integer multiplies run on the FMA pipe beside
+# the int32 pipe; and HBM3 bytes per second.
+INT_OPS_PER_S = 1.67e13
+INSTR_OPS_PER_S = 3.35e13
+BYTES_PER_S = 3.35e12
+
+
+def tower_mul_ops(h: int) -> int:
+    """Operations of one bit-sliced GF(2^(2^h)) multiply (32 products) as
+    the card issues them.  The circuit of csrc/tower_mul.cuh, two-input AND
+    and XOR gates (13,448 at h = 7, 1,388 at h = 5), is covered by
+    three-input LOP3 operations: a gate folds into a gate that reads it
+    while the fold still reads at most three values, and a gate is issued
+    only if an output or an issued gate reads it.  The cover is greedy: the
+    card can reach the count, which is not proven least."""
+    n_in, gates = 2 << h, []
+
+    def gate(a, b):
+        gates.append((a, b))
+        return n_in + len(gates) - 1
+
+    def alpha(x):                       # tower::mul_alpha
+        if len(x) == 1:
+            return list(x)
+        half = len(x) // 2
+        t = alpha(x[half:])
+        return x[half:] + [gate(x[i], t[i]) for i in range(half)]
+
+    def mul(a, b):                      # tower::mul_body
+        if len(a) == 1:
+            return [gate(a[0], b[0])]
+        half = len(a) // 2
+        sa = [gate(a[i], a[half + i]) for i in range(half)]
+        sb = [gate(b[i], b[half + i]) for i in range(half)]
+        z0, z2 = mul(a[:half], b[:half]), mul(a[half:], b[half:])
+        zm, z2a = mul(sa, sb), alpha(z2)
+        lo = [gate(z0[i], z2[i]) for i in range(half)]
+        return lo + [gate(gate(zm[i], lo[i]), z2a[i]) for i in range(half)]
+
+    w = 1 << h
+    out = mul(list(range(w)), list(range(w, 2 * w)))
+    reads = []                          # what each gate's LOP3 reads
+    for a, b in gates:
+        r = {a, b}
+        for c in (a, b):
+            if c >= n_in and c in r:
+                folded = (r - {c}) | reads[c - n_in]
+                if len(folded) <= 3:
+                    r = folded
+        reads.append(r)
+    issued, todo = set(), [g for g in out if g >= n_in]
+    while todo:
+        g = todo.pop()
+        if g not in issued:
+            issued.add(g)
+            todo.extend(c for c in reads[g - n_in] if c >= n_in)
+    return len(issued)
+
+
+# Word operations per unit of work: a bit-sliced multiply of 32 GF(2^128)
+# or of 32 GF(2^32) values (tower_mul_ops); a BB31 butterfly (a modular add
+# and subtract, three operations each, and a Montgomery product of nine:
+# the wide multiply, two more multiplies, two adds, the carry test and the
+# conditional subtract); a QM31 Karatsuba product (9 M31 products of 10
+# operations, 29 modular adds and subtracts of 3); a 32 x 32 bit transpose
+# of 32 words (5 levels x 32 words x a shift and one LOP3; the shuffles
+# move no data through the int32 pipe and are not counted).
+MUL128_OPS, MUL32_OPS = tower_mul_ops(7), tower_mul_ops(5)
+TRANSPOSE32_OPS = 5 * 32 * 2
+BB31_ADD_OPS, BB31_MUL_OPS = 3, 9
+QM31_MUL_OPS = 9 * 10 + 29 * 3
+
+
+def bound(ops: float, nbytes: float, rate: float = INT_OPS_PER_S) -> dict:
+    """The least time the card could take: the larger of the operations
+    over their peak rate and the bytes over the memory rate."""
+    t_ops, t_bytes = ops / rate, nbytes / BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
 
 
 def say(phase: str, msg: str) -> None:
@@ -652,6 +779,294 @@ def phase_ntt32_timing(dev, runs) -> dict:
     return out
 
 
+def bb31_groups(fn, out, x, tw, log_n: int) -> None:
+    """The chain of stage groups of one BB31 transform through ``fn`` (the
+    kernel or the plain version): x (canonical, IN_ORDER) -> out."""
+    plan = cfb.plan_groups_r2(log_n)
+    for gi, (s0, k) in enumerate(plan):
+        fn(out, tw, s0=s0, k=k, log_n=log_n, encode_in=gi == 0,
+           decode_out=gi == len(plan) - 1, src=x if gi == 0 else None)
+
+
+def check_bb31(x, tw, log_n: int, phase: str) -> int:
+    """stage_group_r2 vs plain after every group of the current plan on
+    input x; returns the largest error and holds the chained output to the
+    golden digest."""
+    plan = cfb.plan_groups_r2(log_n)
+    got, want = torch.empty_like(x), torch.empty_like(x)
+    worst = 0
+    for gi, (s0, k) in enumerate(plan):
+        kw = dict(s0=s0, k=k, log_n=log_n, encode_in=gi == 0,
+                  decode_out=gi == len(plan) - 1, src=x if gi == 0 else None)
+        cfb.stage_group_r2(got, tw, **kw)
+        cfb.stage_group_r2_plain(want, tw, **kw)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        require(err == 0, f"stage_group_r2 (s0={s0}, k={k}) at log_n "
+                f"{log_n} differs from plain ({err})")
+        worst = max(worst, err)
+    digest = md5_words(got)
+    require(digest == bb31_golden()[log_n], f"BB31 log_n {log_n}: digest "
+            f"{digest} != golden")
+    say(phase, f"log_n {log_n} plan {plan}: stage_group_r2 word-equal to "
+        f"plain after every group (max_abs_err {worst}, tolerance exact); "
+        f"golden MD5 matches")
+    return worst
+
+
+def bb31_golden():
+    return load_test_file("golden_hashes").BB31_NTT_HASHES
+
+
+def bb31_input(log_n: int) -> np.ndarray:
+    return mt19937_stream(SEED + log_n, 1 << log_n)
+
+
+def phase_bb31_kernels(dev) -> int:
+    def check(log_n):
+        ntt = NTTRadix2(137, 27, log_n, device=dev)
+        return check_bb31(to_torch(bb31_input(log_n), dev), ntt.tw, log_n,
+                          "bb31_kernels")
+
+    # 1 .. 6: one group (0, log_n) under the production plan, below the
+    # reference's gate of the fused path, which the card does not keep
+    worst = max(check(log_n) for log_n in (*range(1, 7), 16))
+    saved = (cfb.KB, cfb.KU)
+    cfb.KB, cfb.KU = 2, 2                   # many groups and seams
+    try:
+        for log_n in (7, 10, 13):
+            worst = max(worst, check(log_n))
+    finally:
+        cfb.KB, cfb.KU = saved
+    return worst
+
+
+def phase_bb31_main(dev, sizes=(24, 27)):
+    t0 = time.perf_counter()
+    golden = bb31_golden()
+    runs = [(log_n, NTTRadix2(137, 27, log_n, device=dev),
+             bb31_input(log_n)) for log_n in sizes]
+    log_rt = sizes[0]                       # the round trip's size
+    inv = NTTRadix2(bb.inv_host(137), 27, log_rt, device=dev)
+    x_rt = runs[0][2] % np.uint32(bb.P)
+    n_inv = torch.tensor(bb.encode_host(np.array([bb.inv_host(1 << log_rt)]))
+                         .view(np.int32), device=dev)
+    say("bb31_main", f"set-up (twiddles, mt19937 inputs) "
+        f"{time.perf_counter() - t0:.1f} s host")
+
+    reset_counts()
+    outs = []
+    for log_n, ntt, words in runs:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = ntt.apply(words)
+        torch.cuda.synchronize()
+        outs.append((log_n, out, time.perf_counter() - t1))
+    back = bb.mont_mul(inv.apply(runs[0][1].apply(x_rt)), n_inv)
+    torch.cuda.synchronize()
+    launches = {"stage_group_r2": cfb.stage_group_r2.launches}
+
+    for log_n, out, sec in outs:
+        require(tuple(out.shape) == (1 << log_n,),
+                f"output shape {tuple(out.shape)}")
+        digest = md5_words(out)
+        require(digest == golden[log_n], f"BB31 2^{log_n}: digest {digest} "
+                f"!= golden {golden[log_n]}")
+        say("bb31_main", f"NTTRadix2(137, 27, {log_n}).apply: golden MD5 "
+            f"{digest} matches; {sec:.3f} s host clock incl. upload")
+    require(np.array_equal(to_numpy(back), x_rt), f"the 2^{log_rt} round "
+            f"trip did not give back the input mod P")
+    # each size once, then the first twice more for the round trip
+    n_groups = (2 * len(cfb.plan_groups_r2(log_rt))
+                + sum(len(cfb.plan_groups_r2(log_n)) for log_n in sizes))
+    require(launches["stage_group_r2"] == n_groups, f"expected {n_groups} "
+            f"stage_group_r2 launches, got {launches}")
+    say("bb31_main", f"2^{log_rt} round trip (forward with 137, inverse "
+        f"with 137^-1, then 1/n) gives back the input mod P; launches "
+        f"{launches}")
+    del outs, back
+    return launches, runs
+
+
+def phase_bb31_timing(dev, runs) -> dict:
+    # the kernel against plain at every shape the main path gave it: the
+    # plans of 2^24 and 2^27, on their own inputs
+    worst = max(check_bb31(to_torch(words, dev), ntt.tw, log_n,
+                           "bb31_timing") for log_n, ntt, words in runs)
+    log_n, ntt, words = runs[0]
+    x = to_torch(words, dev)
+    tw = ntt.tw
+    out = torch.empty_like(x)
+    ms = device_time(bb31_groups, cfb.stage_group_r2, out, x, tw,
+                     log_n) * 1e3
+    plain_ms = device_time(bb31_groups, cfb.stage_group_r2_plain, out, x,
+                           tw, log_n, warmup=1, reps=3) * 1e3
+    apply_ms = device_time(ntt.apply, x) * 1e3
+    plan = cfb.plan_groups_r2(log_n)
+    s0, k = plan[0]
+    first = {name: device_time(
+        lambda src: cfb.stage_group_r2(out, tw, s0=s0, k=k, log_n=log_n,
+                                       encode_in=True, src=src),
+        src) * 1e3 for name, src in (("with", x), ("without", None))}
+    groups_ms = [device_time(lambda s0=s0, k=k: cfb.stage_group_r2(
+        out, tw, s0=s0, k=k, log_n=log_n)) * 1e3 for s0, k in plan[1:]]
+    # the per-stage torch path: one plain group over every stage
+    per_stage_ms = device_time(
+        lambda: cfb.stage_group_r2_plain(
+            out, tw, s0=0, k=log_n, log_n=log_n, encode_in=True,
+            decode_out=True, src=x), warmup=1, reps=3) * 1e3
+    n = 1 << log_n
+    # 23 multiplying stages and the top one (no multiply), the encode and
+    # the decode; the input and the twiddles read, the output written
+    ops = (n // 2 * ((log_n - 1) * (2 * BB31_ADD_OPS + BB31_MUL_OPS)
+                     + 2 * BB31_ADD_OPS) + 2 * n * BB31_MUL_OPS)
+    b = bound(ops, 4 * n + 4 * n + 4 * (n // 2), INSTR_OPS_PER_S)
+    say("bb31_timing", f"2^{log_n} plan {plan}: chain kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms (bound {b['bound_ms']:.3f} ms by "
+        f"{b['bound_by']}); apply from device words {apply_ms:.3f} ms; first "
+        f"group {first['with']:.3f} ms with its bit-reversing load, "
+        f"{first['without']:.3f} ms without; upper groups {groups_ms} ms; "
+        f"per-stage torch path {per_stage_ms:.3f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "apply_ms": apply_ms,
+            "first_group_ms": first, "upper_groups_ms": groups_ms,
+            "per_stage_ms": per_stage_ms, "max_abs_err": worst, **b}
+
+
+def phase_qm31_kernels(dev, num_vars_list=(12, 20)) -> dict:
+    rng = np.random.default_rng(SEED + 31)
+    worst = {"round": 0, "fold": 0}
+    for num_vars in num_vars_list:
+        x = to_torch(rng.integers(0, cpr.P, (2, 1 << num_vars, 4),
+                                  dtype=np.uint32), dev)
+        rows = 1 << num_vars
+        while rows >= 2:
+            err_r = max_abs_err(cpr.round_kernel(x, rows),
+                                cpr.round_plain(x, rows))
+            ch = rng.integers(0, cpr.P, 4, dtype=np.uint32)
+            folded = cpr.fold_kernel(x.clone(), ch, rows)
+            err_f = max_abs_err(folded, cpr.fold_plain(x.clone(), ch, rows))
+            require(err_r == 0 and err_f == 0, f"QM31 kernels differ from "
+                    f"plain at num_vars {num_vars}, rows {rows} (round "
+                    f"{err_r}, fold {err_f})")
+            worst["round"] = max(worst["round"], err_r)
+            worst["fold"] = max(worst["fold"], err_f)
+            x = folded
+            rows //= 2
+        say("qm31_kernels", f"num_vars {num_vars}: round and fold word-equal "
+            f"to plain at every live row count {1 << num_vars}..2 "
+            f"(max_abs_err 0, tolerance exact)")
+    return worst
+
+
+@contextlib.contextmanager
+def plain_prime():
+    """The QM31 prover's round and fold calls go to the plain versions."""
+    saved = cpr.round_kernel, cpr.fold_kernel
+    cpr.round_kernel, cpr.fold_kernel = cpr.round_plain, cpr.fold_plain
+    try:
+        yield
+    finally:
+        cpr.round_kernel, cpr.fold_kernel = saved
+
+
+def phase_qm31_main(dev, pg, num_vars=24, golden_num_vars=20):
+    t0 = time.perf_counter()
+    vals = mt19937_stream(QM31_SEED, (8 << num_vars) + 4 * num_vars) \
+        % np.uint32(cpr.P)
+    evals = vals[:8 << num_vars].reshape(2, 1 << num_vars, 4)
+    challenges = vals[8 << num_vars:].reshape(num_vars, 4)
+    say("qm31_main", f"set-up (mt19937 inputs, {vals.size} words) "
+        f"{time.perf_counter() - t0:.1f} s host")
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    messages = pg.transcript(PrimeFieldSumcheck(evals, device=dev),
+                             challenges)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t1
+    launches = {"prime_round": cpr.round_kernel.launches,
+                "prime_fold": cpr.fold_kernel.launches}
+    check_transcript(messages[:-1], challenges, messages[-1])
+    say("qm31_main", f"PrimeFieldSumcheck(2 x 2^{num_vars} QM31 values): "
+        f"{num_vars} rounds pass the host check (p(0) + p(1) = the claim, "
+        f"the next claim by interpolation, the final product = the last "
+        f"claim); {sec:.3f} s host clock incl. upload; transcript MD5 "
+        f"{pg.transcript_md5(messages)}")
+    require(launches == {"prime_round": num_vars, "prime_fold": num_vars},
+            f"expected {num_vars} round and fold launches, got {launches}")
+    say("qm31_main", f"launches {launches}")
+
+    with plain_prime():
+        plain = pg.transcript(PrimeFieldSumcheck(evals, device=dev),
+                              challenges)
+    require(len(plain) == len(messages) and all(
+        np.array_equal(a, b) for a, b in zip(plain, messages)),
+        "the QM31 transcript differs from the plain versions'")
+    say("qm31_main", "transcript equals the plain versions' on the card")
+
+    ev, ch = pg.protocol_inputs(golden_num_vars, mt19937_stream)
+    gm = pg.transcript(PrimeFieldSumcheck(ev, device=dev), ch)
+    check_transcript(gm[:-1], ch, gm[-1])
+    digest = pg.transcript_md5(gm)
+    want = pg.PRIME_TRANSCRIPT_MD5[golden_num_vars]
+    require(digest == want, f"QM31 num_vars {golden_num_vars}: transcript "
+            f"MD5 {digest} != the JAX package's {want}")
+    say("qm31_main", f"num_vars {golden_num_vars}: transcript MD5 {digest} "
+        f"matches the JAX package's")
+    return launches, evals, challenges
+
+
+def phase_qm31_timing(dev, evals, challenges, worst, num_vars=24) -> dict:
+    rows = 1 << num_vars
+    x = to_torch(evals, dev)
+    err_r = max_abs_err(cpr.round_kernel(x, rows), cpr.round_plain(x, rows))
+    err_f = max_abs_err(cpr.fold_kernel(x.clone(), challenges[0], rows),
+                        cpr.fold_plain(x.clone(), challenges[0], rows))
+    require(err_r == 0 and err_f == 0, f"QM31 kernels differ from plain at "
+            f"2^{num_vars} (round {err_r}, fold {err_f})")
+    worst["round"] = max(worst["round"], err_r)
+    worst["fold"] = max(worst["fold"], err_f)
+    t = {"round_ms": device_time(cpr.round_kernel, x, rows),
+         "round_plain_ms": device_time(cpr.round_plain, x, rows, warmup=1,
+                                       reps=3),
+         # the fold works in place: each call folds the same rows again
+         "fold_ms": device_time(cpr.fold_kernel, x, challenges[0], rows),
+         "fold_plain_ms": device_time(cpr.fold_plain, x, challenges[0],
+                                      rows, warmup=1, reps=3)}
+    t = {k: v * 1e3 for k, v in t.items()}
+    state = to_torch(evals, dev)
+    runs = []
+    for _ in range(3):
+        prover = PrimeFieldSumcheck(state)
+        torch.cuda.synchronize()
+        seconds = []
+        for ch in challenges:
+            t0 = time.perf_counter()
+            prover.round_messages()
+            prover.fold(ch)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        runs.append(seconds)
+        del prover
+    t["protocol_ms"] = statistics.median(sum(r) for r in runs) * 1e3
+    half = rows // 2
+    t["round_bound"] = bound(half * (3 * QM31_MUL_OPS + 8 * 2 * 3 + 12 * 2),
+                             2 * rows * 16, INSTR_OPS_PER_S)
+    t["fold_bound"] = bound(2 * half * (QM31_MUL_OPS + 8 * 3),
+                            2 * rows * 16 + 2 * half * 16, INSTR_OPS_PER_S)
+    say("qm31_timing", f"2^{num_vars}: round and fold word-equal to plain "
+        f"on the timed input (max_abs_err 0); first round "
+        f"{t['round_ms']:.3f} ms (plain {t['round_plain_ms']:.3f} ms, bound "
+        f"{t['round_bound']['bound_ms']:.3f} ms by "
+        f"{t['round_bound']['bound_by']}), fold {t['fold_ms']:.3f} ms (plain "
+        f"{t['fold_plain_ms']:.3f} ms, bound "
+        f"{t['fold_bound']['bound_ms']:.3f} ms by "
+        f"{t['fold_bound']['bound_by']}); whole protocol from device state "
+        f"{t['protocol_ms']:.3f} ms host clock (median of 3)")
+    return t
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an sm_90 "
@@ -676,6 +1091,40 @@ def main() -> int:
     n32_timing = phase_ntt32_timing(dev, n32_runs)
     say("ntt32_timing", f"phases 10-12 took {time.perf_counter() - t32:.1f} "
         f"s")
+    t13 = time.perf_counter()
+    r2_err = phase_bb31_kernels(dev)
+    r2_launches, r2_runs = phase_bb31_main(dev)
+    r2_timing = phase_bb31_timing(dev, r2_runs)
+    del r2_runs
+    pg = load_test_file("test_torch_prime_sumcheck_golden")
+    q_err = phase_qm31_kernels(dev)
+    q_launches, q_evals, q_challenges = phase_qm31_main(dev, pg)
+    q_timing = phase_qm31_timing(dev, q_evals, q_challenges, q_err)
+    say("qm31_timing", f"phases 13-18 took {time.perf_counter() - t13:.1f} "
+        f"s")
+
+    # bounds of the earlier kernels, from the shapes of their timed calls:
+    # 2^24 points (rate 0) for the NTT chains, the sumcheck's first round
+    # at 2^24 evaluations and C = 2, the transpose on 2^17 rows
+    def live_stages(zero_flags) -> int:
+        return sum(not z for flags in zero_flags for z in flags)
+
+    n24, batches = 1 << 24, (1 << 24) // 32
+    sg_bound = bound(
+        live_stages(zero for *_, zero in ntt24.tables) * (n24 // 64)
+        * MUL128_OPS, 2 * n24 * 16)
+    mul_rows = 1 << 18
+    mul.update(bound(mul_rows * MUL128_OPS, 3 * mul_rows * W * 4))
+    sc_bounds = {
+        "round": bound(batches // 2 * 3 * MUL128_OPS, 2 * batches * W * 4),
+        "fold": bound(2 * batches // 2 * MUL128_OPS,
+                      2 * batches * W * 4 + batches * W * 4)}
+    lane_rows = 1 << 17
+    lanes_bound = bound(lane_rows * 4 * TRANSPOSE32_OPS,
+                        2 * lane_rows * W * 4)
+    sg32_bound = bound(
+        live_stages(tabs["zero"] for *_, tabs in n32_runs[0][1].tables)
+        * (n24 // 64) * MUL32_OPS, 2 * n24 * 4)
 
     def sumcheck_entry(kind: str, line: int) -> dict:
         return {
@@ -690,7 +1139,22 @@ def main() -> int:
             "ms_by_composition": {
                 c: sc_timing[c][f"{kind}_ms"] for c in COMPS},
             "plain_ms_by_composition": {
-                c: sc_timing[c][f"{kind}_plain_ms"] for c in COMPS}}
+                c: sc_timing[c][f"{kind}_plain_ms"] for c in COMPS},
+            **sc_bounds[kind]}
+
+    def prime_entry(kind: str, line: int) -> dict:
+        return {
+            "name": f"prime_{kind}", "route": "cuda",
+            "source": f"binius_ntt_tpu_torch/csrc/prime_{kind}.cu",
+            "replaces": "binius_ntt_tpu/sumcheck/pallas_prime_round.py:"
+                        f"{line}",
+            "launches": q_launches[f"prime_{kind}"],
+            "max_abs_err": q_err[kind],
+            "ms": q_timing[f"{kind}_ms"],
+            "plain_ms": q_timing[f"{kind}_plain_ms"],
+            "shape": "2 x 2^24 QM31 values, first round",
+            "protocol_ms": q_timing["protocol_ms"],
+            **q_timing[f"{kind}_bound"]}
 
     mul["launches"] = launches["mul_tiles"]
     kernels = {
@@ -699,7 +1163,9 @@ def main() -> int:
             "source": "binius_ntt_tpu_torch/csrc/stage_group.cu",
             "replaces": "binius_ntt_tpu/ntt/pallas_fused.py:341",
             "launches": launches["stage_group"], "max_abs_err": sg_err,
-            "ms": timing["ms"], "plain_ms": timing["plain_ms"]},
+            "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+            "shape": "every group of the 2^24 rate-0 transform",
+            **sg_bound},
             sumcheck_entry("round", 175), sumcheck_entry("fold", 294),
             {"name": "bitslice_lane_groups", "route": "cuda",
              "source": "binius_ntt_tpu_torch/csrc/bitslice_lane_groups.cu",
@@ -709,7 +1175,8 @@ def main() -> int:
                                 n32_timing["err"]["bitslice_lane_groups"]),
              "ms": n32_timing["lanes"]["ms"],
              "plain_ms": n32_timing["lanes"]["plain_ms"],
-             "shape": "2^17 rows of 128 words (2^24 compact words)"},
+             "shape": "2^17 rows of 128 words (2^24 compact words)",
+             **lanes_bound},
             {"name": "stage_group32", "route": "cuda",
              "source": "binius_ntt_tpu_torch/csrc/stage_group32.cu",
              "replaces": "binius_ntt_tpu/ntt/pallas_fused32.py:400",
@@ -722,7 +1189,24 @@ def main() -> int:
                       "by_rate has rate 2",
              "by_rate": n32_timing["chain"],
              "apply_ms_by_rate": n32_timing["apply"],
-             "compact_plain_apply_ms": n32_timing["compact_ms"]}],
+             "compact_plain_apply_ms": n32_timing["compact_ms"],
+             **sg32_bound},
+            {"name": "stage_group_r2", "route": "cuda",
+             "source": "binius_ntt_tpu_torch/csrc/stage_group_r2.cu",
+             "replaces": "binius_ntt_tpu/ntt/pallas_fused_bb31.py:222",
+             "launches": r2_launches["stage_group_r2"],
+             "max_abs_err": max(r2_err, r2_timing["max_abs_err"]),
+             "ms": r2_timing["ms"], "plain_ms": r2_timing["plain_ms"],
+             "shape": "every group of the 2^24 transform, the bit-reversing "
+                      "load included",
+             "apply_ms": r2_timing["apply_ms"],
+             "first_group_ms": r2_timing["first_group_ms"],
+             "upper_groups_ms": r2_timing["upper_groups_ms"],
+             "per_stage_plain_apply_ms": r2_timing["per_stage_ms"],
+             "bound_ms": r2_timing["bound_ms"],
+             "bound_by": r2_timing["bound_by"],
+             "library_ms": r2_timing["library_ms"]},
+            prime_entry("round", 121), prime_entry("fold", 200)],
         # built and checked, but on neither of the port's paths.  In the
         # reference it runs in the TPU sumcheck's small rounds (the jnp
         # kernels below the Pallas tile gate multiply through it); the

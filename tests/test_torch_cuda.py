@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card, against their plain versions, and
-the NTT (GF(2^128) and GF(2^32)) and sumcheck paths on the card against
-their golden digests.
+the NTT (GF(2^128), GF(2^32) and BB31) and sumcheck (GF(2^128) and QM31)
+paths on the card against their golden digests.
 
 Every test here needs an sm_90 GPU and nvcc; it is marked ``cuda`` and skips
 elsewhere.  The file imports no JAX, so it also runs on a machine with only
@@ -15,19 +15,24 @@ import numpy as np
 import pytest
 import torch
 
-from golden_hashes import ADDITIVE_NTT_HASHES
+import test_torch_prime_sumcheck_golden as prime_golden
+from golden_hashes import ADDITIVE_NTT_HASHES, BB31_NTT_HASHES
 from golden_hashes_oracle import ADDITIVE_NTT128_HASHES
 from test_torch_sumcheck_golden import (SUMCHECK_TRANSCRIPT_MD5,
                                         protocol_inputs, transcript,
                                         transcript_md5)
-from binius_ntt_tpu_torch import AdditiveNTT, AdditiveNTT128, Sumcheck
+from binius_ntt_tpu_torch import (AdditiveNTT, AdditiveNTT128, NTTRadix2,
+                                  PrimeFieldSumcheck, Sumcheck)
 from binius_ntt_tpu_torch.layout.bitslicing import bitslice_transpose
 from binius_ntt_tpu_torch.ntt import cuda_fused as cf
 from binius_ntt_tpu_torch.ntt import cuda_fused32 as cf32
+from binius_ntt_tpu_torch.ntt import cuda_fused_bb31 as cfb
 from binius_ntt_tpu_torch.ntt import cuda_kernels as ck
 from binius_ntt_tpu_torch.ntt.additive import precompute_subspace_evals
+from binius_ntt_tpu_torch.sumcheck import cuda_prime_round as cpr
 from binius_ntt_tpu_torch.sumcheck import cuda_round as cr
 from binius_ntt_tpu_torch.sumcheck import verifier as V
+from binius_ntt_tpu_torch.sumcheck.prime_field import check_transcript
 from binius_ntt_tpu_torch.utils.bits import to_numpy, to_torch
 from binius_ntt_tpu_torch.utils.mt19937 import mt19937_stream
 
@@ -274,3 +279,119 @@ def test_ntt32_wrappers_refuse_what_the_kernels_do_not_take(dev):
     ntt = AdditiveNTT(9, 0, device=dev)
     with pytest.raises(ValueError, match="int32 words on"):
         ntt.apply(torch.zeros(512, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("log_n,kb,ku", [
+    (7, None, None), (11, None, None), (16, None, None), (7, 2, 2),
+    (11, 3, 5), (16, 5, 3),
+])
+def test_stage_group_r2_kernel_matches_plain(dev, log_n, kb, ku,
+                                             monkeypatch):
+    if kb is not None:                  # else the production plan
+        monkeypatch.setattr(cfb, "KB", kb)
+        monkeypatch.setattr(cfb, "KU", ku)
+    ntt = NTTRadix2(137, 27, log_n, device=dev)
+    x = to_torch(mt19937_stream(0xDEADBEEF + log_n, 1 << log_n), dev)
+    plan = cfb.plan_groups_r2(log_n)
+    got, want = torch.empty_like(x), torch.empty_like(x)
+    before = cfb.stage_group_r2.launches
+    for gi, (s0, k) in enumerate(plan):
+        kw = dict(s0=s0, k=k, log_n=log_n, encode_in=gi == 0,
+                  decode_out=gi == len(plan) - 1,
+                  src=x if gi == 0 else None)
+        assert cfb.stage_group_r2(got, ntt.tw, **kw) is got
+        cfb.stage_group_r2_plain(want, ntt.tw, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert cfb.stage_group_r2.launches == before + len(plan)
+    assert _md5(got) == BB31_NTT_HASHES[log_n]
+
+
+@pytest.mark.parametrize("log_n", [7, 20])
+def test_bb31_golden_on_card(dev, log_n):
+    ntt = NTTRadix2(137, 27, log_n, device=dev)
+    before = cfb.stage_group_r2.launches
+    out = ntt.apply(mt19937_stream(0xDEADBEEF + log_n, 1 << log_n))
+    assert out.device.type == "cuda"
+    assert _md5(out) == BB31_NTT_HASHES[log_n]
+    assert cfb.stage_group_r2.launches == before + len(
+        cfb.plan_groups_r2(log_n))
+
+
+@pytest.mark.parametrize("log_n", range(1, 7))
+@pytest.mark.parametrize("use_fused", [None, False])
+def test_bb31_small_sizes_launch_the_kernel(dev, log_n, use_fused):
+    """Below the reference's fused gate (log_n 7) the card still runs the
+    kernel: one group (0, log_n), whose top stage skips the multiply;
+    use_fused=False chooses between plain paths on the CPU only."""
+    ntt = NTTRadix2(137, 27, log_n, use_fused=use_fused, device=dev)
+    assert ntt.use_fused
+    x = mt19937_stream(0xDEADBEEF + log_n, 1 << log_n)
+    before = cfb.stage_group_r2.launches
+    out = ntt.apply(x)
+    torch.cuda.synchronize()
+    assert cfb.stage_group_r2.launches == before + 1
+    assert _md5(out) == BB31_NTT_HASHES[log_n]
+    want = cfb.stage_group_r2_plain(
+        torch.empty_like(out), ntt.tw, s0=0, k=log_n, log_n=log_n,
+        encode_in=True, decode_out=True, src=to_torch(x, dev))
+    assert torch.equal(out, want)
+
+
+def test_bb31_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    ntt = NTTRadix2(137, 27, 14, device=dev)
+    x = _rand(6, (1 << 14,), dev)
+    with pytest.raises(ValueError, match="at most"):
+        cfb.stage_group_r2(x, ntt.tw, s0=0, k=14, log_n=14)
+    with pytest.raises(ValueError, match="tw"):
+        cfb.stage_group_r2(x, ntt.tw.cpu(), s0=0, k=12, log_n=14)
+    with pytest.raises(ValueError, match="out of place"):
+        cfb.stage_group_r2(x, ntt.tw, s0=0, k=12, log_n=14, src=x)
+    with pytest.raises(ValueError, match="int32 words on"):
+        ntt.apply(torch.zeros(1 << 14, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("rows", [2, 4, 1 << 12, 1 << 16])
+def test_prime_kernels_match_plain(dev, rows):
+    rng = np.random.default_rng(rows)
+    p = prime_golden.P
+    evals = to_torch(rng.integers(0, p, (2, rows, 4), dtype=np.uint32), dev)
+    ch = rng.integers(0, p, 4, dtype=np.uint32)
+    before = (cpr.round_kernel.launches, cpr.fold_kernel.launches)
+    got = cpr.round_kernel(evals, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cpr.round_plain(evals, rows))
+    folded = cpr.fold_kernel(evals.clone(), ch, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(folded, cpr.fold_plain(evals.clone(), ch, rows))
+    assert (cpr.round_kernel.launches, cpr.fold_kernel.launches) == (
+        before[0] + 1, before[1] + 1)
+    # a partial live count in the full buffer
+    if rows >= 8:
+        assert torch.equal(cpr.round_kernel(evals, rows // 4),
+                           cpr.round_plain(evals, rows // 4))
+
+
+def test_prime_golden_transcript_on_card(dev):
+    evals, challenges = prime_golden.protocol_inputs(20, mt19937_stream)
+    before = (cpr.round_kernel.launches, cpr.fold_kernel.launches)
+    messages = prime_golden.transcript(PrimeFieldSumcheck(evals, device=dev),
+                                       challenges)
+    assert (cpr.round_kernel.launches, cpr.fold_kernel.launches) == (
+        before[0] + 20, before[1] + 20)
+    check_transcript(messages[:-1], challenges, messages[-1])
+    assert (prime_golden.transcript_md5(messages)
+            == prime_golden.PRIME_TRANSCRIPT_MD5[20])
+
+
+def test_entry_points_default_to_cuda0(dev):
+    expect = torch.device("cuda", 0)
+    assert AdditiveNTT128(6, 0).device == expect
+    assert AdditiveNTT(8, 0).device == expect
+    assert NTTRadix2(137, 27, 8).device == expect
+    assert PrimeFieldSumcheck(np.zeros((2, 8, 4), np.uint32)).device == expect
+    s = Sumcheck(np.zeros(4 * 64 * 2, np.uint32), 2, 6)
+    assert s._evals.device == expect
+    assert PrimeFieldSumcheck.from_state_dict(
+        {"round": 1, "evals": np.zeros((2, 4, 4), np.uint32)}).device == \
+        expect

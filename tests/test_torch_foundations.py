@@ -12,6 +12,8 @@ import torch
 from binius_ntt_tpu.fields import tower_scalar as ts_jax
 from binius_ntt_tpu.ntt import additive as additive_jax
 from binius_ntt_tpu.utils.mt19937 import mt19937_stream as mt_jax
+from binius_ntt_tpu_torch import (AdditiveNTT, AdditiveNTT128, NTTRadix2,
+                                  PrimeFieldSumcheck, Sumcheck)
 from binius_ntt_tpu_torch.fields import tower_scalar as ts
 from binius_ntt_tpu_torch.ntt import additive
 from binius_ntt_tpu_torch.ntt.nttdata import DataOrder, NTTData
@@ -90,3 +92,38 @@ def test_device_time_refuses_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         benchlib.device_time(lambda: None)
+
+
+def _numpy_prime_state():
+    return np.zeros((2, 8, 4), np.uint32)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: AdditiveNTT128(6, 0),
+    lambda: AdditiveNTT(8, 0),
+    lambda: NTTRadix2(137, 27, 8),
+    lambda: Sumcheck(np.zeros(4 * 64 * 2, np.uint32), 2, 6),
+    lambda: Sumcheck.from_state_dict({
+        "num_vars": 6, "composition_size": 2, "round": 0,
+        "device_evals": np.zeros((2, 2, 128), np.uint32),
+        "host_evals": None}),
+    lambda: PrimeFieldSumcheck(_numpy_prime_state()),
+    lambda: PrimeFieldSumcheck.from_state_dict(
+        {"round": 0, "evals": _numpy_prime_state()}),
+], ids=["AdditiveNTT128", "AdditiveNTT", "NTTRadix2", "Sumcheck",
+        "Sumcheck.from_state_dict", "PrimeFieldSumcheck",
+        "PrimeFieldSumcheck.from_state_dict"])
+def test_entry_points_default_to_the_card(make):
+    """device=None means cuda:0; without a card that raises and asks for
+    device="cpu" instead of running on the CPU silently."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present (tests/test_torch_cuda.py "
+                    "checks that device=None lands on it)")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make()
+
+
+def test_default_device_passes_a_named_device_through():
+    assert capabilities.default_device("cpu") == torch.device("cpu")
+    assert capabilities.default_device(torch.device("meta")) == \
+        torch.device("meta")

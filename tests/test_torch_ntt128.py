@@ -39,7 +39,8 @@ def _words(log_h, log_rate):
     (6, 1), (8, 3), (8, 4), (10, 1),
 ])
 def test_ntt128_golden_cpu(log_h, log_rate):
-    out = AdditiveNTT128(log_h, log_rate).apply(_words(log_h, log_rate))
+    out = AdditiveNTT128(log_h, log_rate, device="cpu").apply(
+        _words(log_h, log_rate))
     assert out.shape == ((1 << (log_h + log_rate)) * 4,)
     assert _md5(out) == ADDITIVE_NTT128_HASHES[log_rate][log_h]
 
@@ -47,7 +48,7 @@ def test_ntt128_golden_cpu(log_h, log_rate):
 def test_matches_jax_transform():
     words = _words(9, 1)
     want = np.asarray(AdditiveNTT128Jax(9, 1).apply(words))
-    ntt = AdditiveNTT128(9, 1)
+    ntt = AdditiveNTT128(9, 1, device="cpu")
     assert np.array_equal(to_numpy(ntt.apply(words)), want)
     # int32 tensors and NTTData go through the same path
     assert np.array_equal(to_numpy(ntt.apply(to_torch(words))), want)
@@ -57,7 +58,7 @@ def test_matches_jax_transform():
 
 
 def test_apply_sliced_leaves_input_and_holds_tables_as_buffers():
-    ntt = AdditiveNTT128(8, 2)
+    ntt = AdditiveNTT128(8, 2, device="cpu")
     assert ntt.device == torch.device("cpu")
     names = set(dict(ntt.named_buffers()))
     assert {"mtile0", "minst0", "lanes0"} <= names
@@ -68,7 +69,7 @@ def test_apply_sliced_leaves_input_and_holds_tables_as_buffers():
 
 
 def test_apply_rejects_bad_input():
-    ntt = AdditiveNTT128(6, 0)
+    ntt = AdditiveNTT128(6, 0, device="cpu")
     with pytest.raises(ValueError, match="input shape"):
         ntt.apply(np.zeros(10, np.uint32))
     with pytest.raises(ValueError, match="IN_ORDER"):
@@ -78,9 +79,9 @@ def test_apply_rejects_bad_input():
     with pytest.raises(ValueError, match="apply_sliced"):
         ntt.apply_sliced(torch.zeros(3, 128, dtype=torch.int32))
     with pytest.raises(ValueError, match="log_h"):
-        AdditiveNTT128(5, 0)
+        AdditiveNTT128(5, 0, device="cpu")
     with pytest.raises(ValueError, match="log_rate"):
-        AdditiveNTT128(8, 5)
+        AdditiveNTT128(8, 5, device="cpu")
 
 
 def test_port_imports_no_jax():

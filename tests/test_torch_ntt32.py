@@ -95,7 +95,8 @@ def test_scalar_oracle_matches_jax_and_the_transform(log_h, log_rate):
     x = [int(v) for v in _words(log_h, log_rate)]
     got = additive_ntt_scalar(x, log_h, log_rate, 5)
     assert got == additive_ntt_scalar_jax(x, log_h, log_rate, 5)
-    out = AdditiveNTT(log_h, log_rate).apply(np.array(x, np.uint32))
+    out = AdditiveNTT(log_h, log_rate, device="cpu").apply(
+        np.array(x, np.uint32))
     assert [int(v) for v in to_numpy(out)] == got
 
 
@@ -192,7 +193,7 @@ def test_stage_group32_plain_matches_emulated_jax(log_h, log_rate,
 @pytest.mark.parametrize("log_rate", [0, 2])
 @pytest.mark.parametrize("log_h", list(range(1, 13)))
 def test_additive_ntt_golden(log_h, log_rate):
-    ntt = AdditiveNTT(log_h, log_rate)
+    ntt = AdditiveNTT(log_h, log_rate, device="cpu")
     assert ntt.use_fused == (log_h >= 7)
     out = ntt.apply(_words(log_h, log_rate))
     assert out.shape == (1 << (log_h + log_rate),)
@@ -203,9 +204,9 @@ def test_additive_ntt_golden(log_h, log_rate):
 def test_rates_without_goldens_keep_coset_zero(log_h):
     # coset row 0 of a rate-r transform is the rate-0 transform
     x = mt19937_stream(0xDEADBEEF + 123, 1 << log_h)
-    base = to_numpy(AdditiveNTT(log_h, 0).apply(x))
+    base = to_numpy(AdditiveNTT(log_h, 0, device="cpu").apply(x))
     for log_rate in (1, 3, 4):
-        ext = to_numpy(AdditiveNTT(log_h, log_rate).apply(x))
+        ext = to_numpy(AdditiveNTT(log_h, log_rate, device="cpu").apply(x))
         assert ext.shape == (1 << (log_h + log_rate),)
         assert np.array_equal(ext[:1 << log_h], base)
 
@@ -213,8 +214,8 @@ def test_rates_without_goldens_keep_coset_zero(log_h):
 @pytest.mark.parametrize("log_h,log_rate", [(9, 1), (11, 4)])
 def test_compact_path_matches_fused(log_h, log_rate):
     x = _words(log_h, log_rate)
-    compact = AdditiveNTT(log_h, log_rate, use_fused=False)
-    fused = AdditiveNTT(log_h, log_rate)
+    compact = AdditiveNTT(log_h, log_rate, use_fused=False, device="cpu")
+    fused = AdditiveNTT(log_h, log_rate, device="cpu")
     assert not compact.use_fused and fused.use_fused
     assert {"tw0", f"tw{log_h - 1}"} <= set(dict(compact.named_buffers()))
     assert {"mtile0", "cpl0"} <= set(dict(fused.named_buffers()))
@@ -227,7 +228,7 @@ def test_compact_path_matches_fused(log_h, log_rate):
 
 
 def test_nttdata_order():
-    ntt = AdditiveNTT(8, 1)
+    ntt = AdditiveNTT(8, 1, device="cpu")
     x = _words(8, 1)
     wrapped = ntt.apply(NTTData(x))
     assert wrapped.order is DataOrder.IN_ORDER
@@ -238,14 +239,14 @@ def test_nttdata_order():
 
 def test_validation():
     with pytest.raises(ValueError, match="log_h"):
-        AdditiveNTT(0, 0)
+        AdditiveNTT(0, 0, device="cpu")
     with pytest.raises(ValueError, match="log_rate"):
-        AdditiveNTT(4, 5)
+        AdditiveNTT(4, 5, device="cpu")
     with pytest.raises(ValueError, match="field bits"):
-        AdditiveNTT(31, 2)
+        AdditiveNTT(31, 2, device="cpu")
     with pytest.raises(ValueError, match="height"):
-        AdditiveNTT(4, 0, height=6)
-    ntt = AdditiveNTT(8, 0)
+        AdditiveNTT(4, 0, height=6, device="cpu")
+    ntt = AdditiveNTT(8, 0, device="cpu")
     with pytest.raises(ValueError, match="input shape"):
         ntt.apply(np.zeros(10, np.uint32))
     with pytest.raises(ValueError, match="int32"):

@@ -232,7 +232,8 @@ def _run_protocol(num_vars, comp, transposed, seed):
     challenges = vals[n_ints:].reshape(num_vars, 4)
     given = (to_numpy(bitslice_transpose(to_torch(evals).view(-1, 128)))
              if transposed else evals)
-    s = Sumcheck(given, comp, num_vars, data_is_transposed=transposed)
+    s = Sumcheck(given, comp, num_vars, data_is_transposed=transposed,
+                 device="cpu")
     messages = transcript(s, challenges)
     claim = V.check_transcript(messages, challenges, comp + 1)
     per_col = (1 << num_vars) * IPV
@@ -283,7 +284,8 @@ def test_messages_match_jax_round_by_round(num_vars, transposed, comp):
     want = transcript(prover_jax.Sumcheck(
         given, comp, num_vars, data_is_transposed=transposed), challenges)
     got = transcript(Sumcheck(given, comp, num_vars,
-                               data_is_transposed=transposed), challenges)
+                               data_is_transposed=transposed,
+                               device="cpu"), challenges)
     _assert_same(got, want)
 
 
@@ -291,23 +293,24 @@ def test_state_dict_resume_in_the_port():
     num_vars, comp = 12, 3
     evals = mt19937_stream(77, IPV * (1 << num_vars) * comp)
     challenges = _challenges(400, num_vars)
-    a = Sumcheck(evals, comp, num_vars)
+    a = Sumcheck(evals, comp, num_vars, device="cpu")
     transcript(a, challenges[:3])
     d = a.state_dict()
     assert d["device_evals"].dtype == np.uint32
     assert d["device_evals"].shape == (comp, (1 << (num_vars - 3)) // 32, 128)
     want = transcript(a, challenges[3:])
     for _ in range(2):            # the dict is copied, so it resumes twice
-        b = Sumcheck.from_state_dict(d)
+        b = Sumcheck.from_state_dict(d, device="cpu")
         assert b.round == 3
         _assert_same(transcript(b, challenges[3:]), want)
     # a state saved in the in-word rounds resumes too, in the
     # reference's host_evals form
-    c = Sumcheck(evals, comp, num_vars)
+    c = Sumcheck(evals, comp, num_vars, device="cpu")
     transcript(c, challenges[:9])
     d = c.state_dict()
     assert d["device_evals"] is None and d["host_evals"].shape == (comp, 128)
-    _assert_same(transcript(Sumcheck.from_state_dict(d), challenges[9:]),
+    _assert_same(transcript(Sumcheck.from_state_dict(d, device="cpu"),
+                            challenges[9:]),
                  want[6:])
 
 
@@ -321,13 +324,13 @@ def test_resume_from_a_jax_state(comp):
     ref = prover_jax.Sumcheck(evals, comp, num_vars)
     transcript(ref, challenges[:3])
     port = Sumcheck.from_state_dict(
-        sumcheck_state_from_jax(ref.state_dict()))
+        sumcheck_state_from_jax(ref.state_dict()), device="cpu")
     assert port.round == 3
     _assert_same(transcript(port, challenges[3:]),
                  transcript(ref, challenges[3:]))
     # and back: the port's state dict resumes in JAX
     ref2 = prover_jax.Sumcheck(evals, comp, num_vars)
-    port2 = Sumcheck(evals, comp, num_vars)
+    port2 = Sumcheck(evals, comp, num_vars, device="cpu")
     transcript(port2, challenges[:3])
     transcript(ref2, challenges[:3])
     back = prover_jax.Sumcheck.from_state_dict(port2.state_dict())
@@ -340,27 +343,30 @@ def test_device_resident_ctor_matches_and_refuses():
     evals = mt19937_stream(123, IPV * (1 << num_vars) * comp)
     sliced = bitslice_transpose(to_torch(evals).view(comp, -1, 128))
     challenges = _challenges(500, num_vars)
-    want = transcript(Sumcheck(evals, comp, num_vars), challenges)
+    want = transcript(Sumcheck(evals, comp, num_vars, device="cpu"),
+                      challenges)
     resident = sliced.clone()
     _assert_same(transcript(Sumcheck(resident, comp, num_vars,
-                                      data_is_transposed=True), challenges),
+                                      data_is_transposed=True,
+                                      device="cpu"), challenges),
                  want)
     with pytest.raises(ValueError, match="pre-bit-sliced"):
-        Sumcheck(sliced, comp, num_vars)
+        Sumcheck(sliced, comp, num_vars, device="cpu")
     with pytest.raises(ValueError, match="shape"):
         Sumcheck(sliced[:, :4].contiguous(), comp, num_vars,
-                 data_is_transposed=True)
+                 data_is_transposed=True, device="cpu")
     with pytest.raises(ValueError, match="dtype"):
-        Sumcheck(sliced.long(), comp, num_vars, data_is_transposed=True)
+        Sumcheck(sliced.long(), comp, num_vars, data_is_transposed=True,
+                 device="cpu")
     with pytest.raises(ValueError, match="device"):
         Sumcheck(sliced, comp, num_vars, data_is_transposed=True,
                  device="meta")
     with pytest.raises(ValueError, match="words"):
-        Sumcheck(evals[:-4], comp, num_vars)
+        Sumcheck(evals[:-4], comp, num_vars, device="cpu")
     with pytest.raises(ValueError, match="num_vars"):
-        Sumcheck(evals, comp, 5)
+        Sumcheck(evals, comp, 5, device="cpu")
     with pytest.raises(ValueError, match="composition_size"):
-        Sumcheck(evals, 1, num_vars)
+        Sumcheck(evals, 1, num_vars, device="cpu")
 
 
 def test_flat_ctor_leaves_the_callers_words():
@@ -368,6 +374,7 @@ def test_flat_ctor_leaves_the_callers_words():
     evals = mt19937_stream(9, IPV * (1 << num_vars) * comp)
     sliced = to_numpy(bitslice_transpose(to_torch(evals).view(-1, 128)))
     before = sliced.copy()
-    s = Sumcheck(sliced.reshape(-1), comp, num_vars, data_is_transposed=True)
+    s = Sumcheck(sliced.reshape(-1), comp, num_vars, data_is_transposed=True,
+                 device="cpu")
     transcript(s, _challenges(600, num_vars))
     assert np.array_equal(sliced, before)

@@ -91,7 +91,7 @@ def test_port_plain_transcript_matches_jax_at_14(comp):
     want = SUMCHECK_TRANSCRIPT_MD5[14][comp]
     assert _jax_transcript(14, comp) == want
     words, challenges = protocol_inputs(14, comp, mt19937_stream)
-    messages = transcript(Sumcheck(words, comp, 14), challenges)
+    messages = transcript(Sumcheck(words, comp, 14, device="cpu"), challenges)
     verifier.check_transcript(messages, challenges, comp + 1)
     assert transcript_md5(messages) == want
 
