@@ -6,8 +6,11 @@ built for sm_90a by nvcc at first use) for the hot path.  It never imports
 jax.
 
 Ported so far: the bit-sliced GF(2^128) additive NTT (AdditiveNTT128, the
-fused stage-group path) with its host foundations, the standalone
-bit-sliced multiply (ntt/cuda_kernels.mul_tiles), the bit-sliced
+fused stage-group path and the per-stage path with the butterfly kernels
+of ntt/cuda_kernels.py) with its host foundations, the standalone
+bit-sliced multiply (ntt/cuda_kernels.mul_tiles), the compact tower
+multiply above 32 bits (fields/tower_compact.py, with its kernel
+mul_compact_tiles), the bit-sliced
 GF(2^128) sumcheck prover (Sumcheck, with its round and challenge-fold
 kernels in sumcheck/cuda_round.py and the host verifier in
 sumcheck/verifier.py), and the compact GF(2^32) additive NTT
@@ -24,7 +27,7 @@ Every entry point runs on ``cuda:0`` unless the caller passes another
 torch versions.
 """
 
-from .fields import bitsliced, tower_scalar, tower_simd
+from .fields import bitsliced, tower_compact, tower_scalar, tower_simd
 from .layout.bitslicing import bitslice_transpose, bitslice_untranspose
 from .ntt.additive import AdditiveNTT
 from .ntt.additive_bitsliced import AdditiveNTT128
@@ -44,6 +47,7 @@ __all__ = [
     "bitslice_transpose",
     "bitslice_untranspose",
     "bitsliced",
+    "tower_compact",
     "tower_scalar",
     "tower_simd",
 ]

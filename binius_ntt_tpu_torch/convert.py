@@ -5,8 +5,10 @@ the twiddle rows and the per-group parity-mask tables: ``tables_from_jax``
 turns the tuple that ``binius_ntt_tpu.ntt.pallas_fused.build_tables``
 returns into the port's ``cuda_fused.build_tables`` form, so a test can
 feed both packages the same tables; ``tables32_from_jax`` does the same
-for the GF(2^32) transform's ``pallas_fused32.build_tables32``.  The
-sumcheck prover's state is its
+for the GF(2^32) transform's ``pallas_fused32.build_tables32``, and
+``per_stage_tables_from_jax`` takes the per-stage tables of a JAX
+``AdditiveNTT128(..., use_fused=False)``.  The sumcheck prover's state is
+its
 round and its folded evaluations: ``sumcheck_state_from_jax`` turns the
 dict of ``binius_ntt_tpu.sumcheck.prover.Sumcheck.state_dict()`` into the
 port's, so a protocol begun in JAX can finish in the port.  The prime-field
@@ -23,8 +25,9 @@ import numpy as np
 
 from .utils.bits import to_torch
 
-__all__ = ["tables_from_jax", "tables32_from_jax", "sumcheck_state_from_jax",
-           "radix2_twiddles_from_jax", "prime_sumcheck_state_from_jax"]
+__all__ = ["tables_from_jax", "tables32_from_jax", "per_stage_tables_from_jax",
+           "sumcheck_state_from_jax", "radix2_twiddles_from_jax",
+           "prime_sumcheck_state_from_jax"]
 
 
 def tables_from_jax(jax_tables, device=None):
@@ -53,6 +56,19 @@ def tables32_from_jax(jax_tables, device=None):
         port["zero"] = tuple(bool(z) for z in tabs["zero"])
         out.append((int(t0), int(k), bool(include_low), port))
     return tuple(out)
+
+
+def per_stage_tables_from_jax(jax_ntt, device=None):
+    """The per-stage tables of a JAX ``AdditiveNTT128(h, r,
+    use_pallas=False, use_fused=False)`` (``_high_tables``,
+    ``_low_batch_tables``, ``_low_lane_planes``) -> the port's (high,
+    low_batch, low_lanes) dicts of int32 tensors on ``device``, the form of
+    ``additive_bitsliced.per_stage_tables`` and ``apply_per_stage``."""
+    return tuple(
+        {int(s): to_torch(np.asarray(t, dtype=np.uint32), device)
+         for s, t in tables.items()}
+        for tables in (jax_ntt._high_tables, jax_ntt._low_batch_tables,
+                       jax_ntt._low_lane_planes))
 
 
 def sumcheck_state_from_jax(d: dict, device=None) -> dict:

@@ -1,9 +1,7 @@
 """Additive NTT over GF(2^128), bit-sliced, on one device (torch).
 
-Port of binius_ntt_tpu/ntt/additive_bitsliced.py::AdditiveNTT128, fused
-path: the host builds the twiddle rows (ntt/additive.py) and the per-group
-parity-mask tables (ntt/cuda_fused.py) once, and each transform runs one
-stage_group kernel per group.
+Port of binius_ntt_tpu/ntt/additive_bitsliced.py::AdditiveNTT128, both of
+its paths:
 
   * an element batch is 32 GF(2^128) values as 128 bit-planes (bit j of
     plane i = bit i of element j) — shape (batches, 128), int32 words with
@@ -12,9 +10,22 @@ stage_group kernel per group.
   * the input is replicated into 2^log_rate coset rows, giving the
     rate-1/2^log_rate Reed–Solomon extension.
 
-The per-stage path of the reference (``use_pallas``/``use_fused=False``)
-and its host-side capacity gate are not ported yet, so the transform needs
-log_h >= 6 (a bottom tile of at least two batches).
+Fused path (log_h >= 6): the host builds the twiddle rows (ntt/additive.py)
+and the per-group parity-mask tables (ntt/cuda_fused.py) once, and each
+transform runs one stage_group kernel per group.
+
+Per-stage path (log_h = 5, or ``use_fused=False``): one kernel launch per
+stage on a (C * nb, 128) working buffer, ``cuda_kernels.butterfly_high``
+for the stages s >= 5 that pair whole batches and
+``cuda_kernels.butterfly_low`` for the five in-word stages.  The stage
+tables are the reference's: for s >= 5 the doubling table of compact
+128-bit twiddles in indicator order (one per block), for s < 5 the
+doubling table of each row's batch part and the stage's lane part as
+bit-planes.  The twiddles stay compact (4 words a value); the kernels
+expand them.
+
+Not ported: ``use_pallas`` (the tensor's device picks kernel or plain
+version) and the host-side capacity gate.
 """
 
 from __future__ import annotations
@@ -25,63 +36,189 @@ import torch
 from ..layout.bitslicing import bitslice_transpose, bitslice_untranspose
 from ..utils.bits import to_torch
 from ..utils.capabilities import default_device
-from . import cuda_fused
+from . import cuda_fused, cuda_kernels
 from .additive import precompute_subspace_evals
 from .nttdata import DataOrder, NTTData
 
-__all__ = ["AdditiveNTT128"]
+__all__ = ["AdditiveNTT128", "per_stage_tables", "per_stage_steps",
+           "apply_per_stage"]
 
 HEIGHT = 7
 W = 1 << HEIGHT            # 128 bit-planes
 IPV = W // 32              # 4 words per compact value
 
 
+def _stage_twiddles_multiword(constants_row, num_bits: int) -> np.ndarray:
+    """Doubling-construction twiddle table of 128-bit values: (2^bits, 4)."""
+    table = np.zeros((1, IPV), dtype=np.uint32)
+    for k in range(num_bits):
+        c = np.array(
+            [(constants_row[k] >> (32 * i)) & 0xFFFFFFFF for i in range(IPV)],
+            dtype=np.uint32,
+        )
+        table = np.concatenate([table, table ^ c[None, :]])
+    return table
+
+
+def per_stage_tables(rows, log_h: int, log_rate: int, device=None):
+    """The per-stage path's tables, as the reference builds them
+    (additive_bitsliced.py:119-146): dicts keyed by stage of int32 tensors
+    on ``device`` — high[s] (2^bits, 4) for s >= 5, low_batch[s]
+    (2^(bits - lane_bits), 4) and low_lanes[s] (128,) for s < 5, where
+    bits = log_h + log_rate - 1 - s."""
+    high, low_batch, low_lanes = {}, {}, {}
+    for s in range(log_h):
+        bits = log_h + log_rate - 1 - s
+        if s >= 5:
+            high[s] = to_torch(_stage_twiddles_multiword(rows[s], bits),
+                               device)
+            continue
+        # indicator = coset<<(log_h-1-s) | k<<(4-s) | (j>>(s+1)); lane part:
+        # bits m < 4-s from j, batch part: the rest
+        lane_bits = min(4 - s, bits)
+        lane_vals = np.zeros((32, IPV), dtype=np.uint32)
+        for j in range(32):
+            v = 0
+            jj = j >> (s + 1)
+            for m in range(lane_bits):
+                if (jj >> m) & 1:
+                    v ^= rows[s][m]
+            for i in range(IPV):
+                lane_vals[j, i] = (v >> (32 * i)) & 0xFFFFFFFF
+        low_lanes[s] = bitslice_transpose(to_torch(lane_vals.reshape(W),
+                                                   device))
+        low_batch[s] = to_torch(_stage_twiddles_multiword(
+            rows[s][lane_bits:], bits - lane_bits), device)
+    return high, low_batch, low_lanes
+
+
+def per_stage_steps(high, low_batch, low_lanes, *, nb: int, log_rate: int):
+    """The per-stage path's launches in order, for nb batches a coset:
+    (stage, kernel, plain version, arguments after the working buffer),
+    high stages log_h-1 .. 5, then the low stages 4 .. 0."""
+    log_h = nb.bit_length() + 4
+    cosets = 1 << log_rate
+    for s in range(log_h - 1, 4, -1):
+        groups = nb >> (s - 4)
+        # indicator = coset << (log_h-1-s) | group: the doubling table is in
+        # indicator order, one twiddle per block of 2 db rows
+        if high[s].shape[0] != cosets * groups:
+            raise AssertionError("twiddle table layout mismatch")
+        yield (s, cuda_kernels.butterfly_high,
+               cuda_kernels.butterfly_high_plain, (high[s],))
+    for s in range(min(log_h - 1, 4), -1, -1):
+        # batch part of the indicator: coset << (log_h-1-s-lane_bits) | k
+        if low_batch[s].shape[0] != cosets * nb:
+            raise AssertionError("twiddle table layout mismatch")
+        yield (s, cuda_kernels.butterfly_low, cuda_kernels.butterfly_low_plain,
+               (low_batch[s], low_lanes[s], s))
+
+
+def apply_per_stage(data, high, low_batch, low_lanes, *, log_rate: int):
+    """Per-stage transform (the reference's ``_apply128``): data (nb, 128)
+    bit-sliced -> (cosets * nb, 128).
+
+    The input is copied once per coset into a fresh working buffer, which
+    every stage updates in place; ``data`` itself is not modified.  Each
+    stage launches its kernel on a CUDA tensor and runs the plain version on
+    the CPU.
+    """
+    x = data.repeat(1 << log_rate, 1)
+    for _, kernel, _, args in per_stage_steps(
+            high, low_batch, low_lanes, nb=data.shape[0], log_rate=log_rate):
+        kernel(x, *args)
+    return x
+
+
 class AdditiveNTT128(torch.nn.Module):
     """Additive NTT over GF(2^128), bit-sliced layout.
 
-    The stage-group tables are buffers of this module, made on ``device``
-    (default ``cuda:0``; off the card pass ``device="cpu"``); every call
-    runs on that device.  On a CUDA device the groups run the CUDA kernel,
-    on the CPU its plain torch version.
+    The tables are buffers of this module, made on ``device`` (default
+    ``cuda:0``; off the card pass ``device="cpu"``); every call runs on that
+    device.  On a CUDA device each group or stage runs its CUDA kernel, on
+    the CPU its plain torch version.
+
+    ``use_fused``: None takes the fused path where it applies (log_h >= 6)
+    and the per-stage path at log_h = 5; False takes the per-stage path at
+    every log_h; True needs log_h >= 6.
 
     ``apply`` is the transform (it shadows ``nn.Module.apply``, which this
     module, having no submodules, does not need).
     """
 
-    def __init__(self, log_h: int, log_rate: int = 0, device=None):
+    def __init__(self, log_h: int, log_rate: int = 0,
+                 use_fused: bool | None = None, device=None):
         super().__init__()
-        if not log_h >= 6:
-            raise ValueError("log_h must be >= 6 (the fused path needs a "
-                             "tile of two 32-element batches)")
+        if not log_h >= 5:
+            raise ValueError("log_h must be >= 5 (at least one 32-elem batch)")
         if not 0 <= log_rate <= 4:
             raise ValueError("log_rate must be in [0, 4]")
+        if use_fused and log_h < 6:
+            raise ValueError("use_fused needs log_h >= 6 (a tile of two "
+                             "32-element batches)")
         self.log_h = log_h
         self.log_rate = log_rate
+        self.use_fused = log_h >= 6 if use_fused is None else bool(use_fused)
         device = default_device(device)
         rows = precompute_subspace_evals(log_h, log_rate, HEIGHT)
         self._groups = []
-        tables = cuda_fused.build_tables(rows, log_h, log_rate, device)
-        for g, (t0, k, low, mtile, minst, lanes, zero) in enumerate(tables):
-            self.register_buffer(f"mtile{g}", mtile)
-            self.register_buffer(f"minst{g}", minst)
-            self.register_buffer(f"lanes{g}", lanes)
-            self._groups.append((t0, k, low, zero))
+        if self.use_fused:
+            tables = cuda_fused.build_tables(rows, log_h, log_rate, device)
+            for g, (t0, k, low, mtile, minst, lanes, zero) in enumerate(
+                    tables):
+                self.register_buffer(f"mtile{g}", mtile)
+                self.register_buffer(f"minst{g}", minst)
+                self.register_buffer(f"lanes{g}", lanes)
+                self._groups.append((t0, k, low, zero))
+            return
+        high, low_batch, low_lanes = per_stage_tables(rows, log_h, log_rate,
+                                                      device)
+        for s, t in high.items():
+            self.register_buffer(f"high{s}", t)
+        for s in low_batch:
+            self.register_buffer(f"low_batch{s}", low_batch[s])
+            self.register_buffer(f"low_lanes{s}", low_lanes[s])
 
     @property
     def device(self) -> torch.device:
-        return self.mtile0.device
+        return next(self.buffers()).device
 
     @property
     def tables(self):
-        """The per-group tables in cuda_fused.build_tables() form."""
+        """The fused path's per-group tables in cuda_fused.build_tables()
+        form (empty on the per-stage path)."""
         return tuple(
             (t0, k, low, getattr(self, f"mtile{g}"),
              getattr(self, f"minst{g}"), getattr(self, f"lanes{g}"), zero)
             for g, (t0, k, low, zero) in enumerate(self._groups))
 
+    @property
+    def stage_tables(self):
+        """The per-stage path's tables (high, low_batch, low_lanes), dicts
+        keyed by stage as per_stage_tables() gives them (empty on the fused
+        path)."""
+        if self.use_fused:
+            return {}, {}, {}
+        lows = range(min(self.log_h, 5))
+        return ({s: getattr(self, f"high{s}")
+                 for s in range(5, self.log_h)},
+                {s: getattr(self, f"low_batch{s}") for s in lows},
+                {s: getattr(self, f"low_lanes{s}") for s in lows})
+
+    def stage_steps(self):
+        """The per-stage path's launches in order, as per_stage_steps()
+        gives them for this module's tables."""
+        if self.use_fused:
+            raise ValueError("stage_steps: this transform takes the fused "
+                             "path")
+        return per_stage_steps(*self.stage_tables,
+                               nb=(1 << self.log_h) // 32,
+                               log_rate=self.log_rate)
+
     def apply_sliced(self, data: torch.Tensor) -> torch.Tensor:
         """data: (2^log_h/32, 128) int32 bit-sliced IN_ORDER input on the
-        module's device.  Returns (2^(log_h+log_rate)/32, 128)."""
+        module's device, left unchanged.  Returns (2^(log_h+log_rate)/32,
+        128)."""
         nb = (1 << self.log_h) // 32
         if (data.dtype != torch.int32 or tuple(data.shape) != (nb, W)
                 or data.device != self.device):
@@ -89,8 +226,11 @@ class AdditiveNTT128(torch.nn.Module):
                 f"apply_sliced: expected ({nb}, {W}) int32 on "
                 f"{self.device}, got {tuple(data.shape)} {data.dtype} on "
                 f"{data.device}")
-        return cuda_fused.apply_fused(data.contiguous(), self.tables,
-                                      log_rate=self.log_rate)
+        if self.use_fused:
+            return cuda_fused.apply_fused(data.contiguous(), self.tables,
+                                          log_rate=self.log_rate)
+        return apply_per_stage(data, *self.stage_tables,
+                               log_rate=self.log_rate)
 
     def apply(self, x_words):
         """Compact interface: (2^log_h * 4,) words, little-endian

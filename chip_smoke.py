@@ -75,7 +75,33 @@ run with a non-zero exit and no result line:
  18. qm31_timing — the first round's round and fold at 2^24, each held
      word-equal to its plain version on the timed input and then timed
      beside it (CUDA events), and the whole protocol from device-resident
-     state (host clock with a synchronise per round, median of 3).
+     state (host clock with a synchronise per round, median of 3);
+ 19. butterfly_kernels — the per-stage GF(2^128) NTT's butterfly_high and
+     butterfly_low vs their plain versions stage by stage, word-equal after
+     every stage, at log_h 5 with rates 0..4 (the size only this path
+     takes) and at (12, 0), (12, 2) and (16, 2); each chained output held
+     to the golden MD5 where the table has one, else (log_h 5 at rates 1,
+     3, 4) to the scalar oracle (ntt/reference.py);
+ 20. per_stage_main — the sixth path: AdditiveNTT128(24, r,
+     use_fused=False).apply on the mt19937 inputs of phase 5 for r = 0, 2,
+     held to the golden MD5 digests, and AdditiveNTT128(5, r).apply with
+     the default device and use_fused for r = 0..4, held to the digest or
+     the scalar oracle; every launch counter reset just before each call
+     and read just after (19 butterfly_high and 5 butterfly_low launches
+     at log_h 24, none of stage_group);
+ 21. per_stage_timing — at 2^24, input on the device, r = 0 and 2, CUDA
+     events: every stage of the per-stage chain alone, the whole chain
+     (apply_sliced), the fused apply_sliced on the same input, and the top
+     high stage and the top low stage each held word-equal to its plain
+     version on its chain input and then timed beside it (the plain
+     versions go over the rows in chunks of 2^16, cuda_kernels.PLAIN_CHUNK,
+     so their Karatsuba intermediates stay near 2 GB);
+ 22. compact_mul — the compact tower multiply: mul_compact_tiles at N = 2^24
+     elements for heights 5, 6 and 7 (the seventh path, with the counters
+     reset just before and read just after), each word-equal to
+     mul_compact on the card and held on 4096 sampled products to the
+     scalar oracle, the reference's 128-bit vector, then kernel vs plain
+     timed with CUDA events.
 
 Then three lines: the kernels as JSON, the card's name and power limit
 from nvidia-smi, and the result line
@@ -85,7 +111,12 @@ rounding).  Each kernel's bound_ms is the larger of its operations over
 their peak rate (the int32 pipe for the GF(2) circuits, counted as
 three-input LOP3 operations; the card's instruction rate for the
 prime-field kernels) and its bytes (each input read once, each output
-written once) over the memory rate, from the shapes of the timed call.  No
+written once) over the memory rate, from the shapes of the timed call.
+The operations are those of the cheapest formulation the repo has: a low
+butterfly stage needs only the products of the lanes that reach its
+output, half of them, as a high stage does, and a compact product costs
+the bit-sliced multiply plus the 32 x 32 transposes of its operands and
+result into and out of the bit-sliced layout.  No
 single PyTorch call computes any of these functions, so library_ms is null.
 The script imports no JAX.
 """
@@ -112,6 +143,8 @@ from binius_ntt_tpu_torch import (  # noqa: E402
     AdditiveNTT, AdditiveNTT128, NTTRadix2, PrimeFieldSumcheck, Sumcheck,
     _build)
 from binius_ntt_tpu_torch.fields import baby_bear as bb  # noqa: E402
+from binius_ntt_tpu_torch.fields import tower_compact as tc  # noqa: E402
+from binius_ntt_tpu_torch.fields import tower_scalar as ts  # noqa: E402
 from binius_ntt_tpu_torch.layout.bitslicing import (  # noqa: E402
     bitslice_transpose, bitslice_untranspose)
 from binius_ntt_tpu_torch.ntt import cuda_fused as cf  # noqa: E402
@@ -120,6 +153,8 @@ from binius_ntt_tpu_torch.ntt import cuda_fused_bb31 as cfb  # noqa: E402
 from binius_ntt_tpu_torch.ntt import cuda_kernels as ck  # noqa: E402
 from binius_ntt_tpu_torch.ntt.additive import (  # noqa: E402
     precompute_subspace_evals)
+from binius_ntt_tpu_torch.ntt.reference import (  # noqa: E402
+    additive_ntt_scalar)
 from binius_ntt_tpu_torch.sumcheck import (  # noqa: E402
     cuda_prime_round as cpr)
 from binius_ntt_tpu_torch.sumcheck import cuda_round as cr  # noqa: E402
@@ -139,7 +174,8 @@ COMPS = (2, 3, 4)               # the reference's composition sizes
 QM31_SEED = 0x3131024            # the 2^24 QM31 inputs and challenges
 COUNTED = (ck.mul_tiles, cf.stage_group, cr.round_kernel, cr.fold_kernel,
            cf32.bitslice_lane_groups, cf32.stage_group32, cfb.stage_group_r2,
-           cpr.round_kernel, cpr.fold_kernel)
+           cpr.round_kernel, cpr.fold_kernel, ck.butterfly_high,
+           ck.butterfly_low, tc.mul_compact_tiles)
 
 # The card's peaks for bound_ms (data-sheet estimates at 1.98 GHz): integer
 # logic on the int32 pipe (132 SMs x 64 lanes), the rate of the GF(2)
@@ -397,7 +433,7 @@ def phase_main_path(dev, golden):
             f"layout")
     require(launches["stage_group"] > 0, "stage_group never launched")
     say("main", f"launches {launches}")
-    return launches, runs[0][1]
+    return launches, runs
 
 
 def phase_timing(ntt, dev) -> dict:
@@ -1067,6 +1103,225 @@ def phase_qm31_timing(dev, evals, challenges, worst, num_vars=24) -> dict:
     return t
 
 
+def live_steps(ntt) -> int:
+    """Stages whose twiddles are not all zero (the bound counts only these;
+    the kernels multiply at every stage)."""
+    return sum(any(bool(t.any()) for t in args if torch.is_tensor(t))
+               for _, _, _, args in ntt.stage_steps())
+
+
+def words_to_ints(words: np.ndarray, ipv: int) -> list[int]:
+    return [int.from_bytes(w.astype("<u4").tobytes(), "little")
+            for w in words.reshape(-1, ipv)]
+
+
+def hold_ntt128_output(out, words, log_h: int, log_rate: int,
+                       golden) -> str:
+    """Hold a transform's output words to the golden digest, or, where the
+    table has none, to the scalar oracle (small sizes only); return which."""
+    want = golden.get(log_rate, {}).get(log_h)
+    if want is not None:
+        digest = md5_words(out)
+        require(digest == want, f"({log_h}, {log_rate}) digest {digest} != "
+                f"golden {want}")
+        return "golden MD5"
+    ref = additive_ntt_scalar(words_to_ints(words, 4), log_h, log_rate, 7)
+    require(words_to_ints(to_numpy(out), 4) == ref,
+            f"({log_h}, {log_rate}) differs from the scalar oracle")
+    return "scalar oracle"
+
+
+def phase_butterfly_kernels(dev, golden, sizes=(
+        (5, 0), (5, 1), (5, 2), (5, 3), (5, 4), (12, 0), (12, 2),
+        (16, 2))) -> dict:
+    worst = {"butterfly_high": 0, "butterfly_low": 0}
+    for log_h, log_rate in sizes:
+        ntt = AdditiveNTT128(log_h, log_rate, use_fused=False, device=dev)
+        words = mt19937_stream(SEED + log_h + log_rate, (1 << log_h) * 4)
+        x = bitslice_transpose(to_torch(words, dev).reshape(-1, W)).repeat(
+            1 << log_rate, 1)
+        for s, kernel, plain, args in ntt.stage_steps():
+            name = kernel.__name__
+            want = plain(x.clone(), *args)
+            kernel(x, *args)
+            torch.cuda.synchronize()
+            err = max_abs_err(x, want)
+            require(err == 0, f"{name} at stage {s} of ({log_h}, "
+                    f"{log_rate}) differs from plain ({err})")
+            worst[name] = max(worst[name], err)
+        held = hold_ntt128_output(bitslice_untranspose(x).reshape(-1), words,
+                                  log_h, log_rate, golden)
+        say("butterfly_kernels", f"({log_h}, {log_rate}): {log_h - 5} high "
+            f"and 5 low stages word-equal to plain after every stage "
+            f"(max_abs_err {max(worst.values())}, tolerance exact); chained "
+            f"output matches the {held}")
+    return worst
+
+
+def phase_per_stage_main(dev, golden, runs):
+    """runs: phase 5's (log_rate, fused transform, mt19937 words)."""
+    log_h = (runs[0][2].size // 4).bit_length() - 1
+    t0 = time.perf_counter()
+    big = [(log_rate, AdditiveNTT128(log_h, log_rate, use_fused=False,
+                                     device=dev), words)
+           for log_rate, _, words in runs]
+    small = [(log_rate, AdditiveNTT128(5, log_rate),
+              mt19937_stream(SEED + 5 + log_rate, 32 * 4))
+             for log_rate in range(5)]
+    say("per_stage_main", f"set-up (stage tables) "
+        f"{time.perf_counter() - t0:.1f} s host")
+    total = {"butterfly_high": 0, "butterfly_low": 0}
+    for (log_rate, ntt, words), lh in ([(r, log_h) for r in big]
+                                       + [(r, 5) for r in small]):
+        require(ntt.device == dev and not ntt.use_fused,
+                f"({lh}, {log_rate}) is not the per-stage path on {dev}")
+        reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = ntt.apply(words)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t1
+        counts = {"butterfly_high": ck.butterfly_high.launches,
+                  "butterfly_low": ck.butterfly_low.launches}
+        others = sum(w.launches for w in COUNTED) - sum(counts.values())
+        require(counts == {"butterfly_high": lh - 5, "butterfly_low": 5}
+                and others == 0, f"({lh}, {log_rate}): expected {lh - 5} "
+                f"butterfly_high and 5 butterfly_low launches and no other, "
+                f"got {counts} and {others} others")
+        for name in total:
+            total[name] += counts[name]
+        require(tuple(out.shape) == ((1 << (lh + log_rate)) * 4,),
+                f"output shape {tuple(out.shape)}")
+        held = hold_ntt128_output(out, words, lh, log_rate, golden)
+        say("per_stage_main", f"AdditiveNTT128({lh}, {log_rate}"
+            f"{', use_fused=False' if lh > 5 else ''}).apply: {held} "
+            f"matches; launches {counts}, stage_group 0; {sec:.3f} s host "
+            f"clock incl. upload and layout")
+    say("per_stage_main", f"launches {total}")
+    return total, big
+
+
+def phase_per_stage_timing(dev, runs, big) -> dict:
+    """runs: phase 5's (log_rate, fused transform, words); big: phase
+    20's per-stage transforms on the same inputs."""
+    out = {"err": {"butterfly_high": 0, "butterfly_low": 0}}
+    for (log_rate, fused, words), (_, ntt, _) in zip(runs, big):
+        sliced = bitslice_transpose(to_torch(words, dev).reshape(-1, W))
+        x = sliced.repeat(1 << log_rate, 1)
+        steps = list(ntt.stage_steps())
+        stage_ms, held = [], {}
+        for s, kernel, plain, args in steps:
+            name = kernel.__name__
+            if name not in held:       # the top stage of each kernel
+                got = kernel(x.clone(), *args)
+                err = max_abs_err(got, plain(x.clone(), *args))
+                require(err == 0, f"{name} at stage {s} of ({ntt.log_h}, "
+                        f"{log_rate}) differs from plain on the timed input "
+                        f"({err})")
+                out["err"][name] = max(out["err"][name], err)
+                xt = x.clone()
+                torch.cuda.reset_peak_memory_stats()
+                plain_ms = device_time(plain, xt, *args, warmup=1,
+                                       reps=3) * 1e3
+                peak = torch.cuda.max_memory_allocated()
+                held[name] = {"stage": s, "plain_ms": plain_ms,
+                              "plain_peak_gib": peak / 2**30,
+                              "ms": device_time(kernel, xt, *args) * 1e3}
+                # R / 2 multiplies of 32 products: a high stage's row
+                # pairs, a low stage's lanes that reach the output (the u
+                # lanes of un; the v lanes are rebuilt from them); x read
+                # and written, the tables read
+                held[name].update(bound(
+                    x.shape[0] // 2 * MUL128_OPS,
+                    2 * x.numel() * 4 + sum(t.numel() * 4 for t in args
+                                            if torch.is_tensor(t))))
+                del xt
+                stage_ms.append(held[name]["ms"])
+            else:
+                stage_ms.append(device_time(kernel, x.clone(), *args) * 1e3)
+            kernel(x, *args)                    # advance the chain
+        chain_ms = device_time(ntt.apply_sliced, sliced) * 1e3
+        fused_ms = device_time(fused.apply_sliced, sliced) * 1e3
+        torch.cuda.synchronize()
+        out[log_rate] = {"chain_ms": chain_ms, "fused_ms": fused_ms,
+                         "stage_ms": stage_ms, **held}
+        # the transform's bound, as the fused one counts it: the live
+        # stages' multiplies, the input read and the output written
+        live = live_steps(ntt)
+        out[log_rate]["chain_bound"] = bound(
+            live * (x.shape[0] // 2) * MUL128_OPS,
+            (sliced.numel() + x.numel()) * 4)
+        say("per_stage_timing", f"2^{ntt.log_h} rate {log_rate}: per-stage "
+            f"chain (apply_sliced, {len(steps)} launches) {chain_ms:.3f} ms "
+            f"(bound {out[log_rate]['chain_bound']['bound_ms']:.3f} ms, "
+            f"live stages {live}), fused apply_sliced {fused_ms:.3f} ms; "
+            f"stages {steps[0][0]}..0 alone "
+            f"{[round(t, 3) for t in stage_ms]} ms")
+        for name, t in held.items():
+            say("per_stage_timing", f"rate {log_rate} {name} stage "
+                f"{t['stage']} word-equal to plain on its chain input "
+                f"(max_abs_err 0): kernel {t['ms']:.3f} ms, plain "
+                f"{t['plain_ms']:.3f} ms (chunks of {ck.PLAIN_CHUNK} rows, "
+                f"peak {t['plain_peak_gib']:.1f} GiB), bound "
+                f"{t['bound_ms']:.3f} ms by {t['bound_by']}")
+    return out
+
+
+def phase_compact_mul(dev, n=1 << 24) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ops = {}
+    for h in (5, 6, 7):
+        shape = (n, 1 << (h - 5))
+        ops[h] = tuple(torch.randint(-2**31, 2**31, shape, dtype=torch.int32,
+                                     device=dev, generator=gen)
+                       for _ in range(2))
+    reset_counts()
+    outs = {h: tc.mul_compact_tiles(a, b, h) for h, (a, b) in ops.items()}
+    torch.cuda.synchronize()
+    launches = tc.mul_compact_tiles.launches
+    require(launches == 3, f"expected 3 mul_compact_tiles launches, got "
+            f"{launches}")
+    rng = np.random.default_rng(SEED + 128)
+    out = {"launches": launches, "max_abs_err": 0}
+    for h, (a, b) in ops.items():
+        err = max_abs_err(outs[h], tc.mul_compact(a, b, h))
+        require(err == 0, f"mul_compact_tiles at height {h} differs from "
+                f"mul_compact ({err})")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        idx = torch.from_numpy(rng.choice(n, 4096, replace=False)).to(dev)
+        sa, sb, sz = (to_numpy(t[idx]) for t in (a, b, outs[h]))
+        nl = 1 << (h - 5)
+        for x, y, z in zip(words_to_ints(sa, nl), words_to_ints(sb, nl),
+                           words_to_ints(sz, nl)):
+            require(z == ts.multiply(x, y, h), f"mul_compact_tiles at "
+                    f"height {h} differs from the scalar oracle")
+        ms = device_time(tc.mul_compact_tiles, a, b, h) * 1e3
+        plain_ms = device_time(tc.mul_compact, a, b, h, warmup=1,
+                               reps=3) * 1e3
+        # the bit-sliced multiply and the transposes of a, b and the
+        # product (nl words an element each), per element
+        per = tower_mul_ops(h) / 32 + 3 * nl * TRANSPOSE32_OPS / 32
+        out[h] = {"ms": ms, "plain_ms": plain_ms,
+                  **bound(n * per, 3 * n * nl * 4)}
+        say("compact_mul", f"height {h}, {n} elements of {nl} limbs: "
+            f"word-equal to mul_compact (max_abs_err 0, tolerance exact), "
+            f"4096 sampled products equal the scalar oracle; kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{out[h]['bound_ms']:.3f} ms by {out[h]['bound_by']} "
+            f"({per:.1f} operations a product in the bit-sliced form)")
+    del ops, outs
+    a = 0x0123456789ABCDEF0011223344556677
+    b = 0xFEDCBA9876543210AABBCCDDEEFF0099
+    limbs = [to_torch(np.frombuffer(v.to_bytes(16, "little"),
+                                    dtype=np.uint32).reshape(1, 4), dev)
+             for v in (a, b)]
+    got = words_to_ints(to_numpy(tc.mul_compact_tiles(*limbs, 7)), 4)[0]
+    require(got == ts.multiply(a, b, 7), "the 128-bit vector differs")
+    say("compact_mul", f"launches {launches}; the reference's 128-bit vector "
+        f"matches the scalar oracle")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an sm_90 "
@@ -1078,7 +1333,8 @@ def main() -> int:
     phase_build()
     mul = phase_mul_tiles(dev)
     sg_err = phase_stage_group(dev, golden)
-    launches, ntt24 = phase_main_path(dev, golden)
+    launches, ntt_runs = phase_main_path(dev, golden)
+    ntt24 = ntt_runs[0][1]
     timing = phase_timing(ntt24, dev)
     sc = load_test_file("test_torch_sumcheck_golden")
     sc_err = phase_sumcheck_kernels(dev)
@@ -1102,6 +1358,16 @@ def main() -> int:
     q_timing = phase_qm31_timing(dev, q_evals, q_challenges, q_err)
     say("qm31_timing", f"phases 13-18 took {time.perf_counter() - t13:.1f} "
         f"s")
+    t19 = time.perf_counter()
+    bf_err = phase_butterfly_kernels(dev, golden)
+    bf_launches, ps_big = phase_per_stage_main(dev, golden, ntt_runs)
+    ps_timing = phase_per_stage_timing(dev, ntt_runs, ps_big)
+    del ps_big
+    say("per_stage_timing", f"phases 19-21 took "
+        f"{time.perf_counter() - t19:.1f} s")
+    t22 = time.perf_counter()
+    cm = phase_compact_mul(dev)
+    say("compact_mul", f"phase 22 took {time.perf_counter() - t22:.1f} s")
 
     # bounds of the earlier kernels, from the shapes of their timed calls:
     # 2^24 points (rate 0) for the NTT chains, the sumcheck's first round
@@ -1156,6 +1422,28 @@ def main() -> int:
             "protocol_ms": q_timing["protocol_ms"],
             **q_timing[f"{kind}_bound"]}
 
+    def per_stage_entry(name: str, line: int) -> dict:
+        t = ps_timing[0][name]
+        return {
+            "name": name, "route": "cuda",
+            "source": "binius_ntt_tpu_torch/csrc/butterfly.cu",
+            "replaces": f"binius_ntt_tpu/ntt/pallas_kernels.py:{line}",
+            "launches": bf_launches[name],
+            "max_abs_err": max(bf_err[name], ps_timing["err"][name]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "shape": f"stage {t['stage']} of the 2^24 rate-0 per-stage "
+                     f"transform, {ntt24.log_h - 5 if line == 131 else 5} "
+                     f"such launches a transform; by_rate has rate 2",
+            "by_rate": {r: {k: ps_timing[r][name][k] for k in (
+                "stage", "ms", "plain_ms", "bound_ms")} for r in (0, 2)},
+            "chain_ms_by_rate": {r: ps_timing[r]["chain_ms"]
+                                 for r in (0, 2)},
+            "chain_bound_ms_by_rate": {
+                r: ps_timing[r]["chain_bound"]["bound_ms"] for r in (0, 2)},
+            "fused_apply_sliced_ms_by_rate": {r: ps_timing[r]["fused_ms"]
+                                              for r in (0, 2)},
+            **{k: t[k] for k in ("bound_ms", "bound_by", "library_ms")}}
+
     mul["launches"] = launches["mul_tiles"]
     kernels = {
         "kernels": [{
@@ -1206,7 +1494,19 @@ def main() -> int:
              "bound_ms": r2_timing["bound_ms"],
              "bound_by": r2_timing["bound_by"],
              "library_ms": r2_timing["library_ms"]},
-            prime_entry("round", 121), prime_entry("fold", 200)],
+            prime_entry("round", 121), prime_entry("fold", 200),
+            per_stage_entry("butterfly_high", 131),
+            per_stage_entry("butterfly_low", 168),
+            {"name": "mul_compact", "route": "cuda",
+             "source": "binius_ntt_tpu_torch/csrc/mul_compact.cu",
+             "replaces": "binius_ntt_tpu/fields/tower_compact.py:87",
+             "launches": cm["launches"], "max_abs_err": cm["max_abs_err"],
+             "ms": cm[7]["ms"], "plain_ms": cm[7]["plain_ms"],
+             "shape": "2^24 GF(2^128) products (height 7, 4 limbs); "
+                      "by_height has heights 5 and 6",
+             "by_height": {h: cm[h] for h in (5, 6, 7)},
+             **{k: cm[7][k] for k in ("bound_ms", "bound_by",
+                                      "library_ms")}}],
         # built and checked, but on neither of the port's paths.  In the
         # reference it runs in the TPU sumcheck's small rounds (the jnp
         # kernels below the Pallas tile gate multiply through it); the

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card, against their plain versions, and
-the NTT (GF(2^128), GF(2^32) and BB31) and sumcheck (GF(2^128) and QM31)
-paths on the card against their golden digests.
+the NTT (GF(2^128) fused and per-stage, GF(2^32) and BB31) and sumcheck
+(GF(2^128) and QM31) paths on the card against their golden digests.
 
 Every test here needs an sm_90 GPU and nvcc; it is marked ``cuda`` and skips
 elsewhere.  The file imports no JAX, so it also runs on a machine with only
@@ -22,8 +22,10 @@ from test_torch_sumcheck_golden import (SUMCHECK_TRANSCRIPT_MD5,
                                         protocol_inputs, transcript,
                                         transcript_md5)
 from binius_ntt_tpu_torch import (AdditiveNTT, AdditiveNTT128, NTTRadix2,
-                                  PrimeFieldSumcheck, Sumcheck)
-from binius_ntt_tpu_torch.layout.bitslicing import bitslice_transpose
+                                  PrimeFieldSumcheck, Sumcheck, tower_compact)
+from binius_ntt_tpu_torch.fields import tower_scalar
+from binius_ntt_tpu_torch.layout.bitslicing import (bitslice_transpose,
+                                                    bitslice_untranspose)
 from binius_ntt_tpu_torch.ntt import cuda_fused as cf
 from binius_ntt_tpu_torch.ntt import cuda_fused32 as cf32
 from binius_ntt_tpu_torch.ntt import cuda_fused_bb31 as cfb
@@ -384,9 +386,102 @@ def test_prime_golden_transcript_on_card(dev):
             == prime_golden.PRIME_TRANSCRIPT_MD5[20])
 
 
+@pytest.mark.parametrize("log_h,log_rate", [(5, 4), (9, 2), (12, 1)])
+def test_butterfly_kernels_match_plain(dev, log_h, log_rate):
+    """Every stage of a per-stage transform: kernel vs plain, word-equal
+    after each stage, then the chained output against the digest."""
+    ntt = AdditiveNTT128(log_h, log_rate, use_fused=False, device=dev)
+    data = bitslice_transpose(to_torch(_words(log_h, log_rate),
+                                       dev).view(-1, 128))
+    x = data.repeat(1 << log_rate, 1)
+    before = (ck.butterfly_high.launches, ck.butterfly_low.launches)
+    for _, kernel, plain, args in ntt.stage_steps():
+        want = plain(x.clone(), *args)
+        assert kernel(x, *args) is x
+        torch.cuda.synchronize()
+        assert torch.equal(x, want)
+    assert (ck.butterfly_high.launches, ck.butterfly_low.launches) == (
+        before[0] + log_h - 5, before[1] + 5)
+    digest = ADDITIVE_NTT128_HASHES[log_rate].get(log_h)
+    if digest is not None:
+        assert _md5(bitslice_untranspose(x).reshape(-1)) == digest
+
+
+def test_butterfly_high_on_random_rows(dev):
+    """Many blocks and a pair distance of 4 rows, on random words."""
+    x = _rand(7, (64, 128), dev)
+    w4 = _rand(8, (8, 4), dev)
+    want = ck.butterfly_high_plain(x.clone(), w4)
+    ck.butterfly_high(x, w4)
+    torch.cuda.synchronize()
+    assert torch.equal(x, want)
+
+
+@pytest.mark.parametrize("log_h,log_rate", [
+    (5, 0), (5, 1), (5, 2), (5, 3), (5, 4), (12, 2)])
+def test_per_stage_path_on_card(dev, log_h, log_rate):
+    ntt = AdditiveNTT128(log_h, log_rate, use_fused=None if log_h == 5
+                         else False, device=dev)
+    assert not ntt.use_fused
+    before = (ck.butterfly_high.launches, ck.butterfly_low.launches,
+              cf.stage_group.launches)
+    words = _words(log_h, log_rate)
+    out = ntt.apply(words)
+    torch.cuda.synchronize()
+    assert (ck.butterfly_high.launches, ck.butterfly_low.launches,
+            cf.stage_group.launches) == (before[0] + log_h - 5,
+                                         before[1] + 5, before[2])
+    digest = ADDITIVE_NTT128_HASHES[log_rate].get(log_h)
+    if digest is not None:
+        assert _md5(out) == digest
+    # the plain per-stage path on the CPU gives the same words
+    cpu = AdditiveNTT128(log_h, log_rate, use_fused=False, device="cpu")
+    assert torch.equal(out.cpu(), cpu.apply(words))
+
+
+def test_butterfly_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = _rand(9, (8, 128), dev)
+    w4 = _rand(10, (2, 4), dev)
+    with pytest.raises(ValueError, match="w4"):
+        ck.butterfly_high(x, w4.cpu())
+    with pytest.raises(ValueError, match="aligned"):
+        ck.butterfly_high(x, _rand(10, (9, 4), dev).view(-1)[1:9].view(2, 4))
+    with pytest.raises(ValueError, match="blocks"):
+        ck.butterfly_high(x, _rand(10, (3, 4), dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.butterfly_low(_rand(9, (8, 256), dev)[:, ::2], w4, w4[0], 0)
+
+
+@pytest.mark.parametrize("height", [5, 6, 7])
+@pytest.mark.parametrize("n", [1, 1000, 1 << 16])
+def test_mul_compact_tiles_kernel_matches_plain(dev, height, n):
+    nl = 1 << (height - 5)
+    a, b = _rand(11, (n, nl), dev), _rand(12, (n, nl), dev)
+    before = tower_compact.mul_compact_tiles.launches
+    got = tower_compact.mul_compact_tiles(a, b, height)
+    torch.cuda.synchronize()
+    assert tower_compact.mul_compact_tiles.launches == before + 1
+    assert torch.equal(got, tower_compact.mul_compact(a, b, height))
+    ga, gb, gz = (to_numpy(t[:16]) for t in (a, b, got))
+    for i in range(min(n, 16)):
+        ai, bi, zi = (int.from_bytes(w[i].astype("<u4").tobytes(), "little")
+                      for w in (ga, gb, gz))
+        assert zi == tower_scalar.multiply(ai, bi, height)
+
+
+def test_mul_compact_tiles_refuses_what_the_kernel_does_not_take(dev):
+    a = _rand(13, (64, 4), dev)
+    with pytest.raises(ValueError, match="aligned"):
+        tower_compact.mul_compact_tiles(a.view(-1)[2:-2].view(-1, 4),
+                                        a[1:], 7)
+    with pytest.raises(ValueError, match="on"):
+        tower_compact.mul_compact_tiles(a, a.cpu(), 7)
+
+
 def test_entry_points_default_to_cuda0(dev):
     expect = torch.device("cuda", 0)
     assert AdditiveNTT128(6, 0).device == expect
+    assert AdditiveNTT128(5, 0).device == expect
     assert AdditiveNTT(8, 0).device == expect
     assert NTTRadix2(137, 27, 8).device == expect
     assert PrimeFieldSumcheck(np.zeros((2, 8, 4), np.uint32)).device == expect

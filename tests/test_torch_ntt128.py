@@ -79,7 +79,7 @@ def test_apply_rejects_bad_input():
     with pytest.raises(ValueError, match="apply_sliced"):
         ntt.apply_sliced(torch.zeros(3, 128, dtype=torch.int32))
     with pytest.raises(ValueError, match="log_h"):
-        AdditiveNTT128(5, 0, device="cpu")
+        AdditiveNTT128(4, 0, device="cpu")
     with pytest.raises(ValueError, match="log_rate"):
         AdditiveNTT128(8, 5, device="cpu")
 
