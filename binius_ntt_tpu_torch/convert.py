@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .ntt.cuda_fused import subfield_tables
 from .utils.bits import to_torch
 
 __all__ = ["tables_from_jax", "tables32_from_jax", "per_stage_tables_from_jax",
@@ -32,15 +33,18 @@ __all__ = ["tables_from_jax", "tables32_from_jax", "per_stage_tables_from_jax",
 
 def tables_from_jax(jax_tables, device=None):
     """(t0, k, include_low, mtile, minst, lanes, zero_flags) per group, JAX
-    arrays -> the same tuple with int32 tensors on ``device``."""
+    arrays -> the port's (..., zero_flags, chunk32) with int32 tensors on
+    ``device``, chunk32 decided from the arrays
+    (``cuda_fused.subfield_tables``)."""
     out = []
     for (t0, k, include_low, mtile, minst, lanes, zero_flags) in jax_tables:
+        arrays = [None if t is None else np.asarray(t)
+                  for t in (mtile, minst, lanes)]
         out.append((int(t0), int(k), bool(include_low),
-                    to_torch(np.asarray(mtile), device),
-                    to_torch(np.asarray(minst), device),
-                    None if lanes is None
-                    else to_torch(np.asarray(lanes), device),
-                    tuple(bool(z) for z in zero_flags)))
+                    *(None if a is None else to_torch(a, device)
+                      for a in arrays),
+                    tuple(bool(z) for z in zero_flags),
+                    subfield_tables(*arrays)))
     return tuple(out)
 
 

@@ -18,19 +18,34 @@
 // the 4-swap out-shuffle that rotates the next stage's bit to the top (the
 // lanes rows are pre-permuted for that loop).
 //
-// Bound on this card: integer ALU, then local memory.  Every butterfly is
-// one 128-plane multiply, 10,326 three-input LOP3 operations (13,448
-// two-input gates; chip_smoke.tower_mul_ops) for 2 KB of row traffic that
-// stays in L2 between stages; the circuit spills to local memory (see
-// tower_mul.cuh).
+// Bound on this card: integer ALU.  Two routes, one template argument,
+// chosen on the host from the tables (ntt/cuda_fused.py::subfield_tables):
 //
-// Design: one thread block per (instance, chunk of `cols` columns).  The
-// block loops over the group's high stages with a __syncthreads() between
-// them; each thread runs whole butterflies, and the tile stays in global
-// memory (a k = 8 tile is 128 KB per column, served from the 50 MB L2).
-// The in-word stages are thread-local: one thread owns a row pair for all
-// five of them.  Stages flagged in zero_mask have an all-zero twiddle and
-// skip the multiply.
+//   * CHUNK32, taken when no plane >= 32 of mtile, minst or lanes is set,
+//     so that every twiddle lies in the subfield GF(2^32) (true of every
+//     domain of at most 2^32 points, so of every table the card can hold).
+//     GF(2^128) is then a 4-dimensional GF(2^32)-vector space
+//     (fields/bitsliced.py::mul_subfield_chunks): w*v is the four GF(2^32)
+//     products w*v[32c, 32c+32), 4 x 1,059 = 4,236 three-input LOP3
+//     operations (chip_smoke.tower_mul_ops) where one GF(2^128) product
+//     takes 10,326.  The packing and the out-shuffle of the in-word stages
+//     act within a word, so the four chunks never mix and a group is four
+//     independent GF(2^32)-linear transforms.  A block owns one 32-plane
+//     chunk of a tile in shared memory (32 KB at k = 8, one column), loads
+//     it once, runs every stage on it with a barrier between stages, and
+//     stores it once; a thread runs whole (row pair, chunk) butterflies,
+//     each an inline tower_mul32 in registers (loops around it rolled, as
+//     in stage_group32.cu), and in the bottom group keeps its two 32-plane
+//     chunks in registers through all five in-word stages.
+//   * general, for tables with higher planes: one block per (instance,
+//     `cols` columns), the tile in global memory (L2) between stages, and
+//     every butterfly one 128-plane multiply, the out-of-line tower_mul128
+//     (~510 planes live, so it goes through local memory; see
+//     tower_mul.cuh), for 2 KB of row traffic; a thread owns a row pair for
+//     all five in-word stages, reading and writing it at each.
+//
+// Stages flagged in zero_mask have an all-zero twiddle and skip the
+// multiply.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -40,7 +55,17 @@
 namespace {
 
 constexpr int W = 128;
+constexpr int C32 = 32;             // planes of one GF(2^32) chunk
+constexpr int NCHUNK = W / C32;     // chunks of a row
+constexpr int N_LOW = 5;            // in-word stages 4..0
 constexpr int MAX_THREADS = 256;
+// shared memory on this card: an SM's, the most one block may have, and
+// what the runtime reserves for each block.  Where two CHUNK32 blocks fit
+// on an SM they take MAX_THREADS / 2 threads each (the registers hold 8
+// warps an SM), so that one block's barriers leave the other running.
+constexpr int SM_SMEM = 228 * 1024;
+constexpr int SMEM_LIMIT = 227 * 1024;
+constexpr int SMEM_RESERVED = 1024;
 constexpr uint32_t UM = 0x0000FFFFu;
 constexpr uint32_t VM = 0xFFFF0000u;
 
@@ -66,6 +91,8 @@ __device__ __forceinline__ void load_row(const uint32_t* src, uint32_t* dst) {
     dst[4 * i] = v.x; dst[4 * i + 1] = v.y; dst[4 * i + 2] = v.z; dst[4 * i + 3] = v.w;
   }
 }
+
+// ---- general route: 128-plane twiddles ----
 
 // u' = u ^ w*v, v' = u' ^ v for one row pair at one high stage
 __device__ __forceinline__ void butterfly(uint32_t* u, uint32_t* v,
@@ -133,20 +160,17 @@ __device__ __forceinline__ void low_step(uint32_t* r0, uint32_t* r1,
   }
 }
 
-__global__ void __launch_bounds__(MAX_THREADS)
-    stage_group_kernel(uint32_t* __restrict__ x,
-                       const uint32_t* __restrict__ mtile,
-                       const uint32_t* __restrict__ minst,
-                       const uint32_t* __restrict__ lanes, int k, int post,
-                       int cols, int n_chunks, int include_low,
-                       int zero_mask) {
+__device__ __forceinline__ void group_general(
+    uint32_t* __restrict__ x, const uint32_t* __restrict__ mtile,
+    const uint32_t* __restrict__ minst, const uint32_t* __restrict__ lanes,
+    int k, int post, int cols, int n_chunks, int include_low,
+    int zero_mask) {
   const uint32_t q = blockIdx.x / n_chunks;
   const int j0 = (blockIdx.x % n_chunks) * cols;
-  const int half = 1 << (k - 1);
   const size_t row_stride = static_cast<size_t>(post) * W;
-  uint32_t* tile = x + (static_cast<size_t>(q) * (2 * half) * post + j0) * W;
+  uint32_t* tile = x + ((static_cast<size_t>(q) << k) * post + j0) * W;
+  const int half = 1 << (k - 1);
   const int n_bfly = half * cols;
-
   for (int st = 0; st < k; ++st) {
     const int p = k - 1 - st;
     const uint32_t lowm = (1u << p) - 1u;
@@ -165,7 +189,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
   if (include_low) {   // post == cols == 1: rows are contiguous
     for (int j = threadIdx.x; j < half; j += blockDim.x) {
       uint32_t* r0 = tile + static_cast<size_t>(2 * j) * W;
-      for (int i = 0; i < 5; ++i) {
+      for (int i = 0; i < N_LOW; ++i) {
         const int st = k + i;
         low_step(r0, r0 + W, 2 * j, q, mtile + st * W, minst + st * W,
                  lanes + i * W, (zero_mask >> st) & 1);
@@ -174,28 +198,235 @@ __global__ void __launch_bounds__(MAX_THREADS)
   }
 }
 
+// ---- CHUNK32 route: GF(2^32) twiddles, one 32-plane chunk a block ----
+//
+// A block owns one 32-plane chunk of one tile: 2^k x cols slots of 128
+// bytes in shared memory, loaded once, run through every stage of the
+// group, and stored once.  Slot s = t * cols + c keeps its 8 uint4 at
+// positions j ^ (s & 7), so that 8 neighbouring slots read in one phase
+// fall on distinct banks.
+
+// plane of the twiddle parity(blk & mt) ^ parity(q & mi), as 0 or ~0
+__device__ __forceinline__ uint32_t twiddle_plane(uint32_t blk, uint32_t mt,
+                                                  uint32_t q, uint32_t mi) {
+  return parity_plane((blk & mt) ^ (q & mi), ~0u);
+}
+
+__device__ __forceinline__ uint32_t* slot_vec(uint32_t* sm, int s, int j) {
+  return sm + s * C32 + ((j ^ (s & 7)) << 2);
+}
+
+__device__ __forceinline__ void lds_chunk(uint32_t* sm, int s, uint32_t* d) {
+#pragma unroll
+  for (int j = 0; j < C32 / 4; ++j) {
+    const uint4 v = *reinterpret_cast<const uint4*>(slot_vec(sm, s, j));
+    d[4 * j] = v.x; d[4 * j + 1] = v.y; d[4 * j + 2] = v.z; d[4 * j + 3] = v.w;
+  }
+}
+
+__device__ __forceinline__ void sts_chunk(uint32_t* sm, int s,
+                                          const uint32_t* d) {
+#pragma unroll
+  for (int j = 0; j < C32 / 4; ++j)
+    *reinterpret_cast<uint4*>(slot_vec(sm, s, j)) =
+        make_uint4(d[4 * j], d[4 * j + 1], d[4 * j + 2], d[4 * j + 3]);
+}
+
+// u' = u ^ w*v, v' = u' ^ v on the chunk of slots su, sv; w is planes
+// 0..31 of the stage's twiddle
+__device__ __forceinline__ void chunk_butterfly(
+    uint32_t* sm, int su, int sv, uint32_t blk, uint32_t q,
+    const uint32_t* __restrict__ mt, const uint32_t* __restrict__ mi,
+    bool zero) {
+  uint32_t a[C32], b[C32], prod[C32];
+  lds_chunk(sm, sv, b);
+  if (zero) {
+#pragma unroll
+    for (int i = 0; i < C32; ++i) prod[i] = 0u;
+  } else {
+    uint32_t w[C32];
+#pragma unroll
+    for (int i = 0; i < C32; ++i)
+      w[i] = twiddle_plane(blk, __ldg(mt + i), q, __ldg(mi + i));
+    tower_mul32(w, b, prod);
+  }
+  lds_chunk(sm, su, a);
+#pragma unroll
+  for (int i = 0; i < C32; ++i) {
+    a[i] ^= prod[i];
+    b[i] ^= a[i];
+  }
+  sts_chunk(sm, su, a);
+  sts_chunk(sm, sv, b);
+}
+
+// low_step on one chunk of rows t0 (even) and t0 + 1, held in registers
+// (x0, x1).  Only lo (both rows' u-lanes: the even row's low, the odd
+// row's high) and cp (their v-lanes, packed as low_step packs them) stay
+// live across the multiply: u' = lo ^ w*cp and v' = u' ^ cp for both rows
+// at once.  t0 is even, so parity((t0 + 1) & m) = parity(t0 & m) ^ (m & 1).
+__device__ __forceinline__ void low_step32(uint32_t* x0, uint32_t* x1,
+                                           uint32_t t0, uint32_t q,
+                                           const uint32_t* __restrict__ mt,
+                                           const uint32_t* __restrict__ mi,
+                                           const uint32_t* __restrict__ ln,
+                                           bool zero) {
+  uint32_t lo[C32], cp[C32], prod[C32];
+#pragma unroll
+  for (int i = 0; i < C32; ++i) {
+    lo[i] = (x0[i] & UM) | (x1[i] << 16);
+    cp[i] = (x0[i] >> 16) | (x1[i] & VM);
+  }
+  if (zero) {
+#pragma unroll
+    for (int i = 0; i < C32; ++i) prod[i] = 0u;
+  } else {
+    uint32_t wc[C32];
+#pragma unroll
+    for (int i = 0; i < C32; ++i) {
+      const uint32_t m = __ldg(mt + i);
+      const uint32_t w0 = twiddle_plane(t0, m, q, __ldg(mi + i)) ^ __ldg(ln + i);
+      const uint32_t w1 = w0 ^ (0u - (m & 1u));
+      wc[i] = (w0 & UM) | (w1 << 16);
+    }
+    tower_mul32(wc, cp, prod);
+  }
+#pragma unroll
+  for (int i = 0; i < C32; ++i) {
+    const uint32_t un = lo[i] ^ prod[i];
+    const uint32_t vn = cp[i] ^ un;
+    x0[i] = outshuffle((un & UM) | (vn << 16));
+    x1[i] = outshuffle((un >> 16) | (vn & VM));
+  }
+}
+
+__device__ __forceinline__ void group_chunk32(
+    uint32_t* __restrict__ x, const uint32_t* __restrict__ mtile,
+    const uint32_t* __restrict__ minst, const uint32_t* __restrict__ lanes,
+    int k, int post, int cols, int n_chunks, int include_low,
+    int zero_mask) {
+  extern __shared__ uint4 smem4[];
+  uint32_t* sm = reinterpret_cast<uint32_t*>(smem4);
+  const int ch = blockIdx.x % NCHUNK;   // neighbouring blocks: one tile
+  const int blk = blockIdx.x / NCHUNK;
+  const uint32_t q = blk / n_chunks;
+  const int j0 = (blk % n_chunks) * cols;
+  const size_t row_stride = static_cast<size_t>(post) * W;
+  uint32_t* tile =
+      x + ((static_cast<size_t>(q) << k) * post + j0) * W + ch * C32;
+  const int half = 1 << (k - 1);
+  const int n_vec = (2 * half) * cols * (C32 / 4);
+
+  for (int i = threadIdx.x; i < n_vec; i += blockDim.x) {
+    const int s = i / (C32 / 4), j = i % (C32 / 4);
+    const uint32_t* src = tile + (s / cols) * row_stride + (s % cols) * W;
+    *reinterpret_cast<uint4*>(slot_vec(sm, s, j)) =
+        *reinterpret_cast<const uint4*>(src + 4 * j);
+  }
+  __syncthreads();
+
+  for (int st = 0; st < k; ++st) {
+    const int p = k - 1 - st;
+    const uint32_t lowm = (1u << p) - 1u;
+    const bool zero = (zero_mask >> st) & 1;
+#pragma unroll 1
+    for (int i = threadIdx.x; i < half * cols; i += blockDim.x) {
+      const uint32_t b = i / cols;   // butterfly index in [0, half)
+      const int c = i % cols;
+      const uint32_t t = ((b & ~lowm) << 1) | (b & lowm);   // bit p clear
+      const int su = t * cols + c;
+      chunk_butterfly(sm, su, su + (cols << p), t >> (p + 1), q,
+                      mtile + st * W, minst + st * W, zero);
+    }
+    __syncthreads();
+  }
+
+  if (include_low) {   // post == cols == 1: slot s is tile row s
+#pragma unroll 1
+    for (int j = threadIdx.x; j < half; j += blockDim.x) {
+      uint32_t x0[C32], x1[C32];
+      lds_chunk(sm, 2 * j, x0);
+      lds_chunk(sm, 2 * j + 1, x1);
+#pragma unroll 1
+      for (int s = 0; s < N_LOW; ++s) {
+        const int st = k + s;
+        low_step32(x0, x1, 2 * j, q, mtile + st * W, minst + st * W,
+                   lanes + s * W, (zero_mask >> st) & 1);
+      }
+      sts_chunk(sm, 2 * j, x0);
+      sts_chunk(sm, 2 * j + 1, x1);
+    }
+    __syncthreads();
+  }
+
+  for (int i = threadIdx.x; i < n_vec; i += blockDim.x) {
+    const int s = i / (C32 / 4), j = i % (C32 / 4);
+    uint32_t* dst = tile + (s / cols) * row_stride + (s % cols) * W;
+    *reinterpret_cast<uint4*>(dst + 4 * j) =
+        *reinterpret_cast<const uint4*>(slot_vec(sm, s, j));
+  }
+}
+
+template <bool CHUNK32>
+__global__ void __launch_bounds__(MAX_THREADS)
+    stage_group_kernel(uint32_t* __restrict__ x,
+                       const uint32_t* __restrict__ mtile,
+                       const uint32_t* __restrict__ minst,
+                       const uint32_t* __restrict__ lanes, int k, int post,
+                       int cols, int n_chunks, int include_low,
+                       int zero_mask) {
+  if constexpr (CHUNK32)
+    group_chunk32(x, mtile, minst, lanes, k, post, cols, n_chunks,
+                  include_low, zero_mask);
+  else
+    group_general(x, mtile, minst, lanes, k, post, cols, n_chunks,
+                  include_low, zero_mask);
+}
+
 }  // namespace
 
 // x: (n_inst, 2^k, post, 128) uint32, updated in place; mtile, minst:
-// (k + 5*include_low, 128); lanes: (5, 128) or null.  Each block covers
-// `cols` columns (cols divides post; post == cols == 1 when include_low).
-// Returns cudaGetLastError() after the launch (0 = launched).
+// (k + 5*include_low, 128); lanes: (5, 128) or null.  A general block
+// covers `cols` columns (cols divides post; post == cols == 1 when
+// include_low); a CHUNK32 block one 32-plane chunk of them, 2^k * cols *
+// 128 bytes of shared memory, which must be at most SMEM_LIMIT (the host
+// picks cols: ntt/cuda_fused.py::chunk32_cols).  chunk32 != 0 takes the
+// CHUNK32 route, valid only for tables with no plane >= 32 set.  Returns
+// cudaErrorInvalidValue for arguments the kernel cannot take, else
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int bntt_stage_group(void* x, const void* mtile, const void* minst,
                                 const void* lanes, int n_inst, int k,
                                 int post, int cols, int include_low,
-                                int zero_mask, void* stream) {
+                                int zero_mask, int chunk32, void* stream) {
   if (k < 1 || cols < 1 || post % cols != 0 ||
       (include_low && (post != 1 || lanes == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
+  int smem = 0;
+  if (chunk32) {
+    if ((static_cast<long long>(cols) << k) * C32 * 4 > SMEM_LIMIT)
+      return static_cast<int>(cudaErrorInvalidValue);
+    smem = (cols << k) * C32 * 4;
+  }
   const int n_chunks = post / cols;
-  const long long blocks = static_cast<long long>(n_inst) * n_chunks;
+  const long long blocks =
+      static_cast<long long>(n_inst) * n_chunks * (chunk32 ? NCHUNK : 1);
   const int work = (1 << (k - 1)) * cols;
-  const int threads = work < MAX_THREADS ? work : MAX_THREADS;
-  stage_group_kernel<<<(unsigned)blocks, threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(x), static_cast<const uint32_t*>(mtile),
-      static_cast<const uint32_t*>(minst),
-      static_cast<const uint32_t*>(lanes), k, post, cols, n_chunks,
-      include_low, zero_mask);
+  const int cap = chunk32 && 2 * (smem + SMEM_RESERVED) <= SM_SMEM
+                      ? MAX_THREADS / 2 : MAX_THREADS;
+  const int threads = work < cap ? work : cap;
+  uint32_t* xx = static_cast<uint32_t*>(x);
+  const uint32_t* mt = static_cast<const uint32_t*>(mtile);
+  const uint32_t* mi = static_cast<const uint32_t*>(minst);
+  const uint32_t* ln = static_cast<const uint32_t*>(lanes);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (chunk32) {
+    cudaFuncSetAttribute(stage_group_kernel<true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    stage_group_kernel<true><<<(unsigned)blocks, threads, smem, s>>>(
+        xx, mt, mi, ln, k, post, cols, n_chunks, include_low, zero_mask);
+  } else {
+    stage_group_kernel<false><<<(unsigned)blocks, threads, 0, s>>>(
+        xx, mt, mi, ln, k, post, cols, n_chunks, include_low, zero_mask);
+  }
   return static_cast<int>(cudaGetLastError());
 }

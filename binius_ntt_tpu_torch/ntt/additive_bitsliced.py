@@ -164,12 +164,12 @@ class AdditiveNTT128(torch.nn.Module):
         self._groups = []
         if self.use_fused:
             tables = cuda_fused.build_tables(rows, log_h, log_rate, device)
-            for g, (t0, k, low, mtile, minst, lanes, zero) in enumerate(
-                    tables):
+            for g, (t0, k, low, mtile, minst, lanes, zero,
+                    chunk32) in enumerate(tables):
                 self.register_buffer(f"mtile{g}", mtile)
                 self.register_buffer(f"minst{g}", minst)
                 self.register_buffer(f"lanes{g}", lanes)
-                self._groups.append((t0, k, low, zero))
+                self._groups.append((t0, k, low, zero, chunk32))
             return
         high, low_batch, low_lanes = per_stage_tables(rows, log_h, log_rate,
                                                       device)
@@ -189,8 +189,9 @@ class AdditiveNTT128(torch.nn.Module):
         form (empty on the per-stage path)."""
         return tuple(
             (t0, k, low, getattr(self, f"mtile{g}"),
-             getattr(self, f"minst{g}"), getattr(self, f"lanes{g}"), zero)
-            for g, (t0, k, low, zero) in enumerate(self._groups))
+             getattr(self, f"minst{g}"), getattr(self, f"lanes{g}"), zero,
+             chunk32)
+            for g, (t0, k, low, zero, chunk32) in enumerate(self._groups))
 
     @property
     def stage_tables(self):

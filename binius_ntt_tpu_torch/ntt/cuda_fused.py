@@ -2,9 +2,17 @@
 
 Port of binius_ntt_tpu/ntt/pallas_fused.py.  The host table builders are
 carried over unchanged (``_bit_masks``, ``plan_groups``,
-``make_group_tables``, ``build_tables``); ``stage_group`` launches the CUDA
-kernel of csrc/stage_group.cu, ``stage_group_plain`` is the same function
-in plain torch, and ``apply_fused`` chains the groups.
+``make_group_tables``, ``build_tables``, which adds the route flag below);
+``stage_group`` launches the CUDA kernel of csrc/stage_group.cu,
+``stage_group_plain`` is the same function in plain torch, and
+``apply_fused`` chains the groups.
+
+Route: when no table plane >= 32 is set (``subfield_tables``), every
+twiddle lies in the subfield GF(2^32), and the kernel takes its CHUNK32
+instantiation, four GF(2^32) chunk products a butterfly; otherwise the
+general one, one GF(2^128) product.  The flag is decided in numpy when the
+tables are built and travels with them, so the wrapper never reads the
+device to choose.  The plain version stays the general GF(2^128) multiply.
 
 Twiddles are GF(2)-linear in the butterfly-block indicator, so bit ``i`` of
 a twiddle is the parity of ``indicator & mask[i]``.  The indicator splits
@@ -38,19 +46,31 @@ from .. import _build
 from ..fields import bitsliced
 from ..utils.bits import lsr, to_torch, u32
 
-__all__ = ["KB", "KU", "PT", "plan_groups", "make_group_tables",
-           "build_tables", "stage_group", "stage_group_plain", "apply_fused"]
+__all__ = ["KB", "KU", "PT", "SUB_PLANES", "plan_groups",
+           "make_group_tables", "subfield_tables", "build_tables",
+           "chunk32_cols", "stage_group", "stage_group_plain", "apply_fused"]
 
 HEIGHT = 7
 W = 1 << HEIGHT
+# planes of the subfield GF(2^32): the low 32 planes of the tower's GF(2^128)
+SUB_PLANES = 32
+# shared memory of a CHUNK32 block (one 32-plane chunk, 128 bytes, of each
+# of its 2^k * cols slots): the most one block may have on the card, and
+# the size within which two blocks share an SM
+CHUNK32_SMEM_LIMIT = 227 * 1024
+CHUNK32_SMEM_TARGET = 96 * 1024
 
-# Plan for Hopper.  The kernel keeps its tile in global memory (L2), so
-# unlike the reference's VMEM-sized tiles no shared-memory limit binds:
-# KB / KU are the most batch bits of the bottom / an upper group (a k = 8
-# tile is 128 KB per column), PT the most tile columns one thread block
-# covers.  Any plan gives identical output bits.
-KB = 8
-KU = 8
+# Plan for Hopper.  KB / KU are the most batch bits of the bottom / an
+# upper group.  PT is the most tile columns one thread block covers: a
+# general block covers min(PT, post) columns, its tile in global memory
+# (L2); a CHUNK32 block holds one 32-plane chunk of its tile in shared
+# memory and covers as many of those columns as fit (chunk32_cols), which
+# at k = 9 and 10 (a column of 64 / 128 KB) is one.  Fewer, larger groups
+# save passes over x: (10, 9, 8) was the fastest plan measured at 2^24 on
+# the H100 (tools/torch_stage_group_ab.py; PERF.md).  Any plan gives
+# identical output bits.
+KB = 10
+KU = 9
 PT = 8
 
 _UM = 0x0000FFFF
@@ -157,10 +177,19 @@ def make_group_tables(rows, log_h: int, log_rate: int, t0: int, k: int,
     return mtile, minst, lanes, tuple(zero)
 
 
+def subfield_tables(mtile, minst, lanes) -> bool:
+    """True when no plane >= 32 of the numpy tables is set: every twiddle
+    they make lies in GF(2^32), and the kernel may take its CHUNK32 route.
+    Holds for every domain of at most 2^32 points, whose subspace
+    polynomials stay in that subfield."""
+    return not any(np.asarray(t)[:, SUB_PLANES:].any()
+                   for t in (mtile, minst, lanes) if t is not None)
+
+
 def build_tables(rows, log_h: int, log_rate: int, device=None):
     """Per-group tables, ordered for execution (top group first): a tuple of
-    (t0, k, include_low, mtile, minst, lanes, zero_flags) with int32
-    tensors on ``device``."""
+    (t0, k, include_low, mtile, minst, lanes, zero_flags, chunk32) with
+    int32 tensors on ``device``; chunk32 is :func:`subfield_tables`."""
     out = []
     for (t0, k, include_low) in reversed(plan_groups(log_h - 5)):
         mtile, minst, lanes, zero_flags = make_group_tables(
@@ -168,8 +197,22 @@ def build_tables(rows, log_h: int, log_rate: int, device=None):
         out.append((t0, k, include_low, to_torch(mtile, device),
                     to_torch(minst, device),
                     None if lanes is None else to_torch(lanes, device),
-                    zero_flags))
+                    zero_flags, subfield_tables(mtile, minst, lanes)))
     return tuple(out)
+
+
+def chunk32_cols(k: int, post: int) -> int:
+    """Tile columns a CHUNK32 block covers: the most, up to min(PT, post),
+    whose 2^k * cols chunk slots keep within CHUNK32_SMEM_TARGET bytes,
+    and at least one.  Raises when one column exceeds CHUNK32_SMEM_LIMIT."""
+    if (SUB_PLANES * 4) << k > CHUNK32_SMEM_LIMIT:
+        raise ValueError(f"stage_group: the CHUNK32 route keeps a tile "
+                         f"column of 2^{k} rows in shared memory, more than "
+                         f"{CHUNK32_SMEM_LIMIT} bytes")
+    cols = min(PT, post)
+    while cols > 1 and (SUB_PLANES * 4 * cols) << k > CHUNK32_SMEM_TARGET:
+        cols >>= 1
+    return cols
 
 
 def _parity_planes(idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -221,10 +264,12 @@ def stage_group_plain(x, mtile, minst, lanes, *, t0: int, k: int,
                       include_low: bool, zero_flags: tuple = ()):
     """Plain torch version of :func:`stage_group`, on any device.
 
-    Whole-tensor ops over every instance at once, with the multiply of
-    fields/bitsliced.py.  Works in place like the kernel: x is updated and
-    returned.  Zero-flagged stages are computed like any other (their
-    twiddle is 0, so the product is 0).
+    Whole-tensor ops over every instance at once, with the general
+    GF(2^128) multiply of fields/bitsliced.py on either route, so that
+    holding the CHUNK32 kernel to it checks the chunk decomposition.
+    Works in place like the kernel: x is updated and returned.
+    Zero-flagged stages are computed like any other (their twiddle is 0, so
+    the product is 0).
     """
     n_inst, post = _group_geometry(x, mtile, minst, lanes, t0, k,
                                    include_low)
@@ -267,14 +312,18 @@ def stage_group_plain(x, mtile, minst, lanes, *, t0: int, k: int,
 
 
 def stage_group(x, mtile, minst, lanes, *, t0: int, k: int,
-                include_low: bool, zero_flags: tuple = ()):
+                include_low: bool, zero_flags: tuple = (),
+                chunk32: bool = False):
     """Run one stage group over x: (cosets, nb, 128) int32, IN PLACE.
 
     Covers high stages 5+t0+k-1 .. 5+t0 and, if include_low, the in-word
     stages 4..0.  x is updated in place (the reference's
     input_output_aliases) and returned.  A CPU tensor runs
     :func:`stage_group_plain`; a CUDA tensor launches the kernel of
-    csrc/stage_group.cu or raises.
+    csrc/stage_group.cu or raises: its CHUNK32 instantiation if
+    ``chunk32`` (the tables' :func:`subfield_tables`, which the caller
+    vouches for), else the general one.  ``launches`` counts every launch,
+    ``route_launches`` each route's.
     """
     if x.device.type == "cpu":
         return stage_group_plain(x, mtile, minst, lanes, t0=t0, k=k,
@@ -284,20 +333,23 @@ def stage_group(x, mtile, minst, lanes, *, t0: int, k: int,
         raise ValueError(f"stage_group: unsupported device {x.device}")
     n_inst, post = _group_geometry(x, mtile, minst, lanes, t0, k,
                                    include_low)
+    cols = chunk32_cols(k, post) if chunk32 else min(PT, post)
     zero_mask = sum(1 << st for st, z in enumerate(zero_flags) if z)
     lib = _build.library()
     with torch.cuda.device(x.device):
         rc = lib.bntt_stage_group(
             x.data_ptr(), mtile.data_ptr(), minst.data_ptr(),
             lanes.data_ptr() if include_low else None, n_inst, k, post,
-            min(PT, post), int(include_low), zero_mask,
+            cols, int(include_low), zero_mask, int(chunk32),
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "stage_group")
     stage_group.launches += 1
+    stage_group.route_launches["chunk32" if chunk32 else "general"] += 1
     return x
 
 
 stage_group.launches = 0
+stage_group.route_launches = {"chunk32": 0, "general": 0}
 
 
 def apply_fused(data, tables, *, log_rate: int):
@@ -311,7 +363,9 @@ def apply_fused(data, tables, *, log_rate: int):
     nb = data.shape[0]
     cosets = 1 << log_rate
     x = data.repeat(cosets, 1).view(cosets, nb, W)
-    for (t0, k, include_low, mtile, minst, lanes, zero_flags) in tables:
+    for (t0, k, include_low, mtile, minst, lanes, zero_flags,
+         chunk32) in tables:
         stage_group(x, mtile, minst, lanes, t0=t0, k=k,
-                    include_low=include_low, zero_flags=zero_flags)
+                    include_low=include_low, zero_flags=zero_flags,
+                    chunk32=chunk32)
     return x.view(cosets * nb, W)

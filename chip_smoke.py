@@ -12,11 +12,21 @@ run with a non-zero exit and no result line:
   3. mul_tiles   — kernel vs its plain torch version on the card, 2^18 rows;
   4. stage_group — kernel vs plain, group by group, at log_h 16 (rates 0
      and 2, production plan) and at (9, 1) and (12, 0) with a forced
-     multi-group plan (KB = KU = PT = 2);
+     multi-group plan (KB = KU = PT = 2), all on the CHUNK32 route; then
+     each instantiation through a whole plan of random tables at (16, 0)
+     and at (12, 0) under the forced plan: the general one with planes
+     >= 32 set, CHUNK32 with random GF(2^32) twiddles;
   5. main path — AdditiveNTT128(24, r).apply on mt19937 input for r = 0, 2,
      held to the native oracle's golden MD5 digests, with every launch
-     counter reset just before and read just after;
-  6. timing   — stage groups at 2^24 rate 0, kernel vs plain, CUDA events;
+     counter reset just before and read just after; every group must take
+     the CHUNK32 route, and the launches per route are printed;
+  6. timing   — stage groups at 2^24, rates 0 and 2: first the kernel vs
+     plain, group by group on the chain's input, at the main path's shapes;
+     then with CUDA events the kernel on its CHUNK32 route (the chain and
+     each group alone), the
+     general instantiation on the earlier default plan (8, 8, 8), the
+     kernel before the CHUNK32 route, held word-equal to it, apply_sliced,
+     and at rate 0 the plain version;
   7. sumcheck_kernels — the sumcheck round and fold kernels vs their plain
      versions at every round of num_vars 12 and 20, C = 2, 3, 4: every
      live row count, then the in-word rounds (rows = 1, lanes 32 .. 1);
@@ -112,11 +122,13 @@ their peak rate (the int32 pipe for the GF(2) circuits, counted as
 three-input LOP3 operations; the card's instruction rate for the
 prime-field kernels) and its bytes (each input read once, each output
 written once) over the memory rate, from the shapes of the timed call.
-The operations are those of the cheapest formulation the repo has: a low
-butterfly stage needs only the products of the lanes that reach its
-output, half of them, as a high stage does, and a compact product costs
-the bit-sliced multiply plus the 32 x 32 transposes of its operands and
-result into and out of the bit-sliced layout.  No
+The operations are those of the cheapest formulation the repo has: a
+GF(2^128) product by a twiddle in GF(2^32) is four GF(2^32) products (every
+twiddle of these transforms lies there), a low butterfly stage needs only
+the products of the lanes that reach its output, half of them, as a high
+stage does, and a compact product costs the bit-sliced multiply plus the
+32 x 32 transposes of its operands and result into and out of the
+bit-sliced layout.  No
 single PyTorch call computes any of these functions, so library_ms is null.
 The script imports no JAX.
 """
@@ -303,6 +315,21 @@ def golden32_table():
 def reset_counts() -> None:
     for wrapper in COUNTED:
         wrapper.launches = 0
+    cf.stage_group.route_launches = {"chunk32": 0, "general": 0}
+
+
+def mul_ops(subfield: bool) -> int:
+    """Operations of 32 GF(2^128) products by twiddles: four GF(2^32)
+    products when the twiddles lie in that subfield, else one GF(2^128)
+    product."""
+    return 4 * MUL32_OPS if subfield else MUL128_OPS
+
+
+def subfield_step(args) -> bool:
+    """True when every twiddle of a per-stage launch lies in GF(2^32):
+    words 1..3 of the compact twiddles and lane planes 32..127 are zero."""
+    return not any(bool((t[:, 1:] if t.dim() == 2 else t[32:]).any())
+                   for t in args if torch.is_tensor(t))
 
 
 def sliced_input(log_h: int, log_rate: int, device) -> torch.Tensor:
@@ -357,45 +384,102 @@ def phase_mul_tiles(dev) -> dict:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
+def _groups_vs_plain(x, tables, where: str):
+    """Kernel (CHUNK32) vs plain for every group of one transform, each on
+    the previous group's output, starting from a copy of x; returns the
+    kernel's output and the max err."""
+    worst = 0
+    for (t0, k, low, mtile, minst, lanes, zero, chunk32) in tables:
+        require(chunk32, f"{where} group (t0={t0}, k={k}) is not flagged "
+                f"CHUNK32")
+        kw = dict(t0=t0, k=k, include_low=low, zero_flags=zero)
+        got = cf.stage_group(x.clone(), mtile, minst, lanes, chunk32=chunk32,
+                             **kw)
+        want = cf.stage_group_plain(x.clone(), mtile, minst, lanes, **kw)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        require(err == 0, f"stage_group (t0={t0}, k={k}, low={low}) at "
+                f"{where} differs from plain ({err})")
+        worst = max(worst, err)
+        del want
+        x = got
+    return x, worst
+
+
 def _check_groups(log_h: int, log_rate: int, dev, golden) -> int:
     """Kernel vs plain for every group of one transform; returns max err."""
     rows = precompute_subspace_evals(log_h, log_rate, 7)
     tables = cf.build_tables(rows, log_h, log_rate, dev)
     data = sliced_input(log_h, log_rate, dev)
-    x = data.repeat(1 << log_rate, 1).view(1 << log_rate, -1, W)
-    worst = 0
-    for (t0, k, low, mtile, minst, lanes, zero) in tables:
-        kw = dict(t0=t0, k=k, include_low=low, zero_flags=zero)
-        got = cf.stage_group(x.clone(), mtile, minst, lanes, **kw)
-        want = cf.stage_group_plain(x.clone(), mtile, minst, lanes, **kw)
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        require(err == 0, f"stage_group (t0={t0}, k={k}, low={low}) at "
-                f"({log_h}, {log_rate}) differs from plain ({err})")
-        worst = max(worst, err)
-        x = got
+    x, worst = _groups_vs_plain(
+        data.repeat(1 << log_rate, 1).view(1 << log_rate, -1, W), tables,
+        f"({log_h}, {log_rate})")
     digest = md5_words(bitslice_untranspose(x.view(-1, W)).reshape(-1))
     want_digest = golden.get(log_rate, {}).get(log_h)
     if want_digest is not None:
         require(digest == want_digest,
                 f"({log_h}, {log_rate}) golden digest mismatch")
     say("stage_group", f"({log_h}, {log_rate}) plan "
-        f"{[(t0, k, low) for (t0, k, low, *_) in tables]} word-equal to "
-        f"plain (max_abs_err {worst}, tolerance exact); digest "
+        f"{[(t0, k, low) for (t0, k, low, *_) in tables]} CHUNK32, "
+        f"word-equal to plain (max_abs_err {worst}, tolerance exact); digest "
         f"{'golden' if want_digest else 'not in the golden table'}")
     return worst
 
 
-def phase_stage_group(dev, golden) -> int:
-    worst = max(_check_groups(16, 0, dev, golden),
-                _check_groups(16, 2, dev, golden))
+def _check_random_tables(log_h: int, log_rate: int, dev) -> int:
+    """Each instantiation through a whole plan of random tables, group by
+    group against plain; returns max err."""
+    random_group_tables = load_test_file(
+        "torch_stage_group_tables").random_group_tables
+    worst = 0
+    plan = list(reversed(cf.plan_groups(log_h - 5)))
+    for width, route in ((W, "general"), (cf.SUB_PLANES, "chunk32")):
+        rng = np.random.default_rng(SEED + log_h + width)
+        x = to_torch(rng.integers(0, 1 << 32, (1 << log_rate,
+                                               (1 << log_h) // 32, W),
+                                  dtype=np.uint32), dev)
+        before = cf.stage_group.route_launches[route]
+        for t0, k, low in plan:
+            mtile, minst, lanes = random_group_tables(rng, k, low, width,
+                                                      dev)
+            kw = dict(t0=t0, k=k, include_low=low)
+            want = cf.stage_group_plain(x.clone(), mtile, minst, lanes, **kw)
+            cf.stage_group(x, mtile, minst, lanes,
+                           chunk32=route == "chunk32", **kw)
+            torch.cuda.synchronize()
+            err = max_abs_err(x, want)
+            require(err == 0, f"stage_group ({route}, t0={t0}, k={k}) on "
+                    f"random tables at ({log_h}, {log_rate}) differs from "
+                    f"plain ({err})")
+            worst = max(worst, err)
+        require(cf.stage_group.route_launches[route] == before + len(plan),
+                f"the {route} route was not taken")
+    say("stage_group", f"({log_h}, {log_rate}) plan "
+        f"{[(t0, k, low) for (t0, k, low) in plan]} on random tables: "
+        f"general (planes 0..127) and CHUNK32 (planes 0..31) word-equal to "
+        f"plain (max_abs_err {worst}, tolerance exact)")
+    return worst
+
+
+@contextlib.contextmanager
+def forced_plan(kb: int, ku: int, pt: int):
+    """cuda_fused's group plan (KB, KU, PT) inside the block."""
     saved = (cf.KB, cf.KU, cf.PT)
-    cf.KB, cf.KU, cf.PT = 2, 2, 2        # multi-group seams and cosets
+    cf.KB, cf.KU, cf.PT = kb, ku, pt
     try:
-        worst = max(worst, _check_groups(9, 1, dev, golden),
-                    _check_groups(12, 0, dev, golden))
+        yield
     finally:
         cf.KB, cf.KU, cf.PT = saved
+
+
+def phase_stage_group(dev, golden) -> int:
+    worst = max(_check_groups(16, 0, dev, golden),
+                _check_groups(16, 2, dev, golden),
+                _check_random_tables(16, 0, dev))
+    with forced_plan(2, 2, 2):           # multi-group seams and cosets
+        worst = max(worst, _check_groups(9, 1, dev, golden),
+                    _check_groups(12, 0, dev, golden),
+                    _check_random_tables(12, 0, dev))
     return worst
 
 
@@ -420,6 +504,7 @@ def phase_main_path(dev, golden):
         outs.append((log_rate, out, time.perf_counter() - t1))
     launches = {"stage_group": cf.stage_group.launches,
                 "mul_tiles": ck.mul_tiles.launches}
+    routes = dict(cf.stage_group.route_launches)
 
     for log_rate, out, sec in outs:
         n_out = (1 << (log_h + log_rate)) * 4
@@ -432,31 +517,88 @@ def phase_main_path(dev, golden):
             f"{digest} matches; {sec:.3f} s host clock incl. upload and "
             f"layout")
     require(launches["stage_group"] > 0, "stage_group never launched")
-    say("main", f"launches {launches}")
+    require(all(chunk32 for _, ntt, _ in runs
+                for *_, chunk32 in ntt.tables)
+            and routes == {"chunk32": launches["stage_group"], "general": 0},
+            f"every main-path group must take the CHUNK32 route: {routes}")
+    say("main", f"launches {launches}; stage_group by route {routes}")
+    launches["stage_group_routes"] = routes
     return launches, runs
 
 
-def phase_timing(ntt, dev) -> dict:
-    sliced = sliced_input(24, 0, dev)
-    tables = ntt.tables
-    x = sliced.clone().view(1, -1, W)
+def phase_timing(runs, dev) -> dict:
+    """runs: phase 5's (log_rate, transform, words)."""
+    out = {}
+    for log_rate, ntt, _ in runs:
+        sliced = sliced_input(ntt.log_h, log_rate, dev)
+        x = sliced.repeat(1 << log_rate, 1).view(1 << log_rate, -1, W)
+        tables = ntt.tables
+        # the kernel held to plain at the main path's shapes
+        plan = [(t0, k, low) for (t0, k, low, *_) in tables]
+        _, plain_err = _groups_vs_plain(x, tables,
+                                        f"2^{ntt.log_h} rate {log_rate}")
+        say("timing", f"2^{ntt.log_h} rate {log_rate} stage groups {plan}: "
+            f"kernel (CHUNK32) word-equal to plain group by group (max_abs_err "
+            f"{plain_err}, tolerance exact)")
+        # the kernel before the CHUNK32 route: the general one on the
+        # earlier default plan
+        with forced_plan(8, 8, 8):
+            general = [g[:7] + (False,) for g in cf.build_tables(
+                precompute_subspace_evals(ntt.log_h, log_rate, 7),
+                ntt.log_h, log_rate, dev)]
 
-    def groups(fn):
-        for (t0, k, low, mtile, minst, lanes, zero) in tables:
-            fn(x, mtile, minst, lanes, t0=t0, k=k, include_low=low,
-               zero_flags=zero)
+        def groups(fn, tabs=tables, x=x):
+            for (t0, k, low, mtile, minst, lanes, zero, chunk32) in tabs:
+                fn(x, mtile, minst, lanes, t0=t0, k=k, include_low=low,
+                   zero_flags=zero, chunk32=chunk32)
 
-    ms = device_time(groups, cf.stage_group) * 1e3
-    apply_ms = device_time(ntt.apply_sliced, sliced) * 1e3
-    torch.cuda.reset_peak_memory_stats()
-    plain_ms = device_time(groups, cf.stage_group_plain, warmup=1,
-                           reps=3) * 1e3
-    peak = torch.cuda.max_memory_allocated()
-    plan = [(t0, k, low) for (t0, k, low, *_) in tables]
-    say("timing", f"2^24 rate 0 stage groups {plan}: kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms (peak {peak / 2**30:.1f} GiB); "
-        f"apply_sliced {apply_ms:.3f} ms")
-    return {"ms": ms, "plain_ms": plain_ms}
+        def plain(*args, chunk32, **kw):
+            return cf.stage_group_plain(*args, **kw)
+
+        # both give the same words on the same input
+        x0 = x.clone()
+        groups(cf.stage_group)
+        got = x.clone()
+        x.copy_(x0)
+        with forced_plan(8, 8, 8):
+            groups(cf.stage_group, general)
+            err = max_abs_err(x, got)
+            require(err == 0, f"2^24 rate {log_rate}: the general route "
+                    f"differs from CHUNK32 ({err})")
+            general_ms = device_time(groups, cf.stage_group, general) * 1e3
+        del x0, got
+        t = {"err": plain_err, "ms": device_time(groups, cf.stage_group) * 1e3,
+             "general_ms": general_ms,
+             "apply_ms": device_time(ntt.apply_sliced, sliced) * 1e3,
+             "group_ms": [device_time(
+                 lambda g=g: cf.stage_group(
+                     x, *g[3:6], t0=g[0], k=g[1], include_low=g[2],
+                     zero_flags=g[6], chunk32=g[7])) * 1e3 for g in tables]}
+        # every live stage's products (four GF(2^32) ones a butterfly on
+        # the CHUNK32 route); x read and written
+        n_pairs = x.numel() // W // 2
+        t.update(bound(sum(sum(not z for z in zero) * n_pairs
+                           * mul_ops(chunk32)
+                           for *_, zero, chunk32 in tables),
+                       2 * x.numel() * 4))
+        msg = (f"2^{ntt.log_h} rate {log_rate} stage groups {plan}: kernel "
+               f"{t['ms']:.3f} ms (CHUNK32), general route on the earlier "
+               f"plan (8, 8, 8) {t['general_ms']:.3f} ms (word-equal); groups "
+               f"alone "
+               f"{[round(g, 3) for g in t['group_ms']]} ms; bound "
+               f"{t['bound_ms']:.3f} ms by {t['bound_by']}; apply_sliced "
+               f"{t['apply_ms']:.3f} ms")
+        if log_rate == 0:
+            torch.cuda.reset_peak_memory_stats()
+            t["plain_ms"] = device_time(groups, plain, warmup=1,
+                                        reps=3) * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            msg += (f"; plain {t['plain_ms']:.3f} ms (peak "
+                    f"{peak / 2**30:.1f} GiB)")
+        say("timing", msg)
+        out[log_rate] = t
+        del x, sliced
+    return out
 
 
 def phase_sumcheck_kernels(dev, num_vars_list=(12, 20)) -> dict:
@@ -1232,7 +1374,7 @@ def phase_per_stage_timing(dev, runs, big) -> dict:
                 # lanes of un; the v lanes are rebuilt from them); x read
                 # and written, the tables read
                 held[name].update(bound(
-                    x.shape[0] // 2 * MUL128_OPS,
+                    x.shape[0] // 2 * mul_ops(subfield_step(args)),
                     2 * x.numel() * 4 + sum(t.numel() * 4 for t in args
                                             if torch.is_tensor(t))))
                 del xt
@@ -1249,7 +1391,8 @@ def phase_per_stage_timing(dev, runs, big) -> dict:
         # stages' multiplies, the input read and the output written
         live = live_steps(ntt)
         out[log_rate]["chain_bound"] = bound(
-            live * (x.shape[0] // 2) * MUL128_OPS,
+            live * (x.shape[0] // 2)
+            * mul_ops(all(subfield_step(a) for *_, a in steps)),
             (sliced.numel() + x.numel()) * 4)
         say("per_stage_timing", f"2^{ntt.log_h} rate {log_rate}: per-stage "
             f"chain (apply_sliced, {len(steps)} launches) {chain_ms:.3f} ms "
@@ -1335,7 +1478,7 @@ def main() -> int:
     sg_err = phase_stage_group(dev, golden)
     launches, ntt_runs = phase_main_path(dev, golden)
     ntt24 = ntt_runs[0][1]
-    timing = phase_timing(ntt24, dev)
+    timing = phase_timing(ntt_runs, dev)
     sc = load_test_file("test_torch_sumcheck_golden")
     sc_err = phase_sumcheck_kernels(dev)
     sc_launches, words, challenges = phase_sumcheck_main(dev, sc)
@@ -1376,9 +1519,6 @@ def main() -> int:
         return sum(not z for flags in zero_flags for z in flags)
 
     n24, batches = 1 << 24, (1 << 24) // 32
-    sg_bound = bound(
-        live_stages(zero for *_, zero in ntt24.tables) * (n24 // 64)
-        * MUL128_OPS, 2 * n24 * 16)
     mul_rows = 1 << 18
     mul.update(bound(mul_rows * MUL128_OPS, 3 * mul_rows * W * 4))
     sc_bounds = {
@@ -1450,10 +1590,17 @@ def main() -> int:
             "name": "stage_group", "route": "cuda",
             "source": "binius_ntt_tpu_torch/csrc/stage_group.cu",
             "replaces": "binius_ntt_tpu/ntt/pallas_fused.py:341",
-            "launches": launches["stage_group"], "max_abs_err": sg_err,
-            "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-            "shape": "every group of the 2^24 rate-0 transform",
-            **sg_bound},
+            "launches": launches["stage_group"],
+            "max_abs_err": max(sg_err, timing[0]["err"], timing[2]["err"]),
+            "ms": timing[0]["ms"], "plain_ms": timing[0]["plain_ms"],
+            "shape": "every group of the 2^24 rate-0 transform (CHUNK32 "
+                     "route); by_rate has rate 2",
+            "route_launches": launches["stage_group_routes"],
+            "by_rate": {r: {k: timing[r][k] for k in (
+                "ms", "general_ms", "group_ms", "apply_ms", "bound_ms")}
+                for r in (0, 2)},
+            **{k: timing[0][k] for k in ("bound_ms", "bound_by",
+                                         "library_ms")}},
             sumcheck_entry("round", 175), sumcheck_entry("fold", 294),
             {"name": "bitslice_lane_groups", "route": "cuda",
              "source": "binius_ntt_tpu_torch/csrc/bitslice_lane_groups.cu",

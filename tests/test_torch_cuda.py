@@ -21,6 +21,7 @@ from golden_hashes_oracle import ADDITIVE_NTT128_HASHES
 from test_torch_sumcheck_golden import (SUMCHECK_TRANSCRIPT_MD5,
                                         protocol_inputs, transcript,
                                         transcript_md5)
+from torch_stage_group_tables import random_group_tables
 from binius_ntt_tpu_torch import (AdditiveNTT, AdditiveNTT128, NTTRadix2,
                                   PrimeFieldSumcheck, Sumcheck, tower_compact)
 from binius_ntt_tpu_torch.fields import tower_scalar
@@ -79,6 +80,7 @@ def test_mul_tiles_refuses_what_the_kernel_does_not_take(dev):
 
 @pytest.mark.parametrize("log_h,log_rate,kb,ku,pt", [
     (9, 1, 2, 2, 2), (12, 0, 2, 2, 2), (10, 2, 3, 1, 1), (13, 4, 8, 8, 8),
+    (16, 2, 10, 9, 8),
 ])
 def test_stage_group_kernel_matches_plain(dev, log_h, log_rate, kb, ku, pt,
                                           monkeypatch):
@@ -92,13 +94,55 @@ def test_stage_group_kernel_matches_plain(dev, log_h, log_rate, kb, ku, pt,
                                        dev).view(-1, 128))
     x = data.repeat(cosets, 1).view(cosets, -1, 128)
     before = cf.stage_group.launches
-    for (t0, k, low, mtile, minst, lanes, zero) in tables:
+    routes = dict(cf.stage_group.route_launches)
+    for (t0, k, low, mtile, minst, lanes, zero, chunk32) in tables:
+        assert chunk32             # the domain's twiddles lie in GF(2^32)
         kw = dict(t0=t0, k=k, include_low=low, zero_flags=zero)
         want = cf.stage_group_plain(x.clone(), mtile, minst, lanes, **kw)
-        assert cf.stage_group(x, mtile, minst, lanes, **kw) is x
+        assert cf.stage_group(x, mtile, minst, lanes, chunk32=chunk32,
+                              **kw) is x
         torch.cuda.synchronize()
         assert torch.equal(x, want)
     assert cf.stage_group.launches == before + len(tables)
+    assert cf.stage_group.route_launches == {
+        "chunk32": routes["chunk32"] + len(tables),
+        "general": routes["general"]}
+
+
+@pytest.mark.parametrize("high_planes", [True, False])
+@pytest.mark.parametrize("log_h,log_rate,kb,ku,pt", [
+    (9, 1, 2, 2, 2), (12, 0, 8, 8, 8), (10, 2, 3, 1, 1)])
+def test_stage_group_kernel_on_random_tables(dev, log_h, log_rate, kb, ku,
+                                             pt, high_planes, monkeypatch):
+    """Each instantiation on random tables through a whole plan: the
+    general one on twiddles with planes >= 32, CHUNK32 on GF(2^32) ones."""
+    monkeypatch.setattr(cf, "KB", kb)
+    monkeypatch.setattr(cf, "KU", ku)
+    monkeypatch.setattr(cf, "PT", pt)
+    route = "general" if high_planes else "chunk32"
+    x = _rand(20 + log_h, (1 << log_rate, (1 << log_h) // 32, 128), dev)
+    rng = np.random.default_rng(100 * log_h)
+    before = cf.stage_group.route_launches[route]
+    plan = list(reversed(cf.plan_groups(log_h - 5)))
+    for t0, k, low in plan:
+        mtile, minst, lanes = random_group_tables(
+            rng, k, low, 128 if high_planes else cf.SUB_PLANES, dev)
+        kw = dict(t0=t0, k=k, include_low=low)
+        want = cf.stage_group_plain(x.clone(), mtile, minst, lanes, **kw)
+        cf.stage_group(x, mtile, minst, lanes, chunk32=not high_planes, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(x, want)
+    assert cf.stage_group.route_launches[route] == before + len(plan)
+
+
+def test_stage_group_chunk32_refuses_a_tile_beyond_shared_memory(dev):
+    k = (cf.CHUNK32_SMEM_LIMIT // (cf.SUB_PLANES * 4)).bit_length()
+    mtile, minst, _ = random_group_tables(np.random.default_rng(9), k, False,
+                                          cf.SUB_PLANES, dev)
+    x = _rand(10, (1, 1 << k, 128), dev)
+    with pytest.raises(ValueError, match="CHUNK32"):
+        cf.stage_group(x, mtile, minst, None, t0=0, k=k, include_low=False,
+                       chunk32=True)
 
 
 @pytest.mark.parametrize("log_h,log_rate", [(6, 0), (12, 0), (10, 2),

@@ -100,17 +100,19 @@ def test_stage_group_dispatch_on_cpu_runs_plain(monkeypatch):
     x = to_torch(_sliced(9, 1)).repeat(2, 1).view(2, -1, 128)
     y = x.clone()
     before = cf.stage_group.launches
-    for (t0, k, low, mtile, minst, lanes, zero) in tables:
+    routes = dict(cf.stage_group.route_launches)
+    for (t0, k, low, mtile, minst, lanes, zero, chunk32) in tables:
         kw = dict(t0=t0, k=k, include_low=low, zero_flags=zero)
-        cf.stage_group(x, mtile, minst, lanes, **kw)
+        cf.stage_group(x, mtile, minst, lanes, chunk32=chunk32, **kw)
         cf.stage_group_plain(y, mtile, minst, lanes, **kw)
     assert torch.equal(x, y)
     assert cf.stage_group.launches == before
+    assert cf.stage_group.route_launches == routes
 
 
 def test_stage_group_rejects_bad_arguments():
     rows = precompute_subspace_evals(8, 0, 7)
-    (t0, k, low, mtile, minst, lanes, zero), = cf.build_tables(rows, 8, 0)
+    (t0, k, low, mtile, minst, lanes, zero, _), = cf.build_tables(rows, 8, 0)
     x = torch.zeros(1, 8, 128, dtype=torch.int32)
     with pytest.raises(ValueError, match="int32"):
         cf.stage_group(x.long(), mtile, minst, lanes, t0=t0, k=k,
