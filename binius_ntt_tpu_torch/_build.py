@@ -21,7 +21,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["library", "check", "build_info"]
+__all__ = ["library", "check", "build_info", "kernel_usage"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -120,6 +120,23 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def kernel_usage(name: str, log: str | None = None) -> str:
+    """What ptxas reported for the entry function whose name holds
+    ``name`` in the build log (``build_info["log"]`` unless given): its
+    stack frame and spill line, then its registers line; "" when the log
+    does not have it (a cached library)."""
+    lines = [ln.strip() for ln in
+             (build_info.get("log", "") if log is None else log).splitlines()]
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and name in ln:
+            found = []
+            for want in ("stack frame", "Used"):
+                found += [x.split(": ", 1)[-1] for x in lines[i + 1:]
+                          if want in x][:1]
+            return " | ".join(found)
+    return ""
 
 
 def check(rc: int, name: str) -> None:

@@ -7,13 +7,13 @@
 // evals is (C, B, 128) uint32 bit-sliced batches, of which the first `rows`
 // are live; half = rows / 2.  For every lower row r < half and its partner
 // r + half, the thread forms the composition products (the product over
-// the C columns) of
-//   point 0: the lower rows;  point 1: the upper rows;
-//   point p >= 2: lo ^ p * (lo ^ up), per column,
-// and XORs them into its partials: out[0] = total (points 0 ^ 1), out[1 + p]
-// = point p.  Multiplying by the constant p of the height-2 subfield is a
-// GF(2)-linear map on each 4-plane chunk, so the fold is the 4x4 matrix of
-// mul-by-p (4-bit row masks from the host, FoldMasks) applied with XORs.
+// the C columns) of every point p = 0 .. C: each column folded at p,
+// lo ^ p * (lo ^ up), which is the lower row at p = 0 and the upper one at
+// p = 1.  out[0] = total (points 0 ^ 1), out[1 + p] = point p.
+// Multiplying by the constant p of the height-2 subfield is a GF(2)-linear
+// map on each 4-plane chunk, so the fold is the 4x4 matrix of mul-by-p
+// (4-bit row masks; points 2 .. C from the host, FoldMasks) applied with
+// XORs.
 //
 // In-word rounds (rows = 1, the last rounds of the protocol, 32 or fewer
 // evaluations): the first `lanes` lanes of batch 0 are live, and lane j
@@ -23,24 +23,29 @@
 // `lanes` lanes, the points on lanes/2.  Summing the 32 lanes of each output
 // batch gives the round's message in both modes.
 //
-// Bound on this card: integer ALU, then local memory.  A row pair costs
-// (C - 1) * (C + 1) multiplies of 10,326 LOP3 operations (13,448 two-input
-// gates) for 2 * C * 512 bytes of reads: ~15 ops per byte at C = 2, ~38 at
-// C = 4, against a balance of ~5 for this card; the multiply spills to
-// local memory (tower_mul.cuh).
+// Bound on this card: integer ALU.  A row pair costs (C - 1) * (C + 1)
+// multiplies of 10,326 LOP3 operations (13,448 two-input gates) for
+// 2 * C * 512 bytes of reads: ~15 ops per byte at C = 2, ~38 at C = 4,
+// against a balance of ~5 for this card.
 //
-// Design: one thread per row pair, grid-stride over the live half, column
-// outer like the reference's unrolled body: each column is loaded once and
-// feeds all C + 1 running products.  C is a runtime argument and the loops
-// over columns and points stay rolled: a kernel templated on C, with those
-// loops unrolled, made ptxas fall back to 32 registers (the multiply then
-// spills ~7 KB) at C <= 5 and built in 62 s for C = 2..8.  Blocks run in
-// no order, so the Pallas accumulator that carries from one grid step to
-// the next becomes a block reduction (warp shuffles, then shared memory)
-// and one atomicXor per word into the (C + 2, 128) output, which the
-// wrapper zeroes.  XOR is order-free, so the result is exact and
-// deterministic.  `rows` is a runtime argument: no row past it is read,
-// and any even rows >= 2 runs, down to the in-word rounds in one thread.
+// Design: one thread per row pair, grid-stride over the live half in warp
+// lock-step (the loop bound is the warp's, so every lane reaches the
+// shuffles).  Point outer: a thread keeps one running product, reading the
+// C columns again for each point (L2 hits for the most part), where a
+// column-outer body keeps C + 1 of them.  After each point the warp
+// reduce-scatters its 32 products (five __shfl_xor_sync halvings of 64 ..
+// 4 words), so that lane l owns words 4l .. 4l+3 of the point summed over
+// the warp, and XORs them into the block's (C + 2, 128) sums in shared
+// memory.  The masks of the in-word rounds and of total-vs-point are
+// constants over the lanes' words and commute with the XOR, so they are
+// applied to the owned words.  C is a runtime argument and the loops over
+// points and columns stay rolled around the multiply (unrolled, ptxas fell
+// back to 32 registers).  Blocks run in no order, so the Pallas accumulator
+// that carries from one grid step to the next becomes one atomicXor per
+// word of the block's sums into the (C + 2, 128) output, which the wrapper
+// zeroes.  XOR is order-free, so the result is exact and deterministic.
+// `rows` is a runtime argument: no row past it is read, and any even rows
+// >= 2 runs, down to the in-word rounds in one thread.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -51,130 +56,143 @@ namespace {
 
 constexpr int W = 128;
 constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
 constexpr int MAX_C = 8;
 constexpr long long MAX_BLOCKS = 1024;
+constexpr uint32_t FULL = 0xffffffffu;
+// fold matrix of point 1, the identity: bit 4j + j of row j
+constexpr uint32_t IDENTITY = 0x8421u;
 
-// matrix of point 2 + e: bits 4j .. 4j+3 of m[e] are row j
+// matrix of point p, p = 0 .. C: bits 4j .. 4j+3 of m[p] are row j
 struct FoldMasks {
-  uint32_t m[MAX_C - 1];
+  uint32_t m[MAX_C + 1];
 };
 
-__device__ __forceinline__ void load_row(const uint32_t* src, uint32_t* dst) {
-  const uint4* s4 = reinterpret_cast<const uint4*>(src);
+// dst = lo ^ M(lo ^ up): one row of a column at the point of matrix m.
+// up is the row at lo + up_off shifted right by `shift` (0 outside the
+// in-word rounds, where up_off is the half).
+__device__ __forceinline__ void fold_row(const uint32_t* lo, long long up_off,
+                                         int shift, uint32_t m,
+                                         uint32_t* dst) {
+  uint32_t mm[16];
 #pragma unroll
-  for (int i = 0; i < W / 4; ++i) {
-    const uint4 v = s4[i];
-    dst[4 * i] = v.x; dst[4 * i + 1] = v.y; dst[4 * i + 2] = v.z; dst[4 * i + 3] = v.w;
-  }
-}
-
-// dst = lo ^ M(xh) on every 4-plane chunk
-__device__ __forceinline__ void fold_point(const uint32_t* lo,
-                                           const uint32_t* xh, uint32_t m,
-                                           uint32_t* dst) {
+  for (int k = 0; k < 16; ++k) mm[k] = 0u - ((m >> k) & 1u);
+  const uint4* l4 = reinterpret_cast<const uint4*>(lo);
+  const uint4* u4 = reinterpret_cast<const uint4*>(lo + up_off);
 #pragma unroll
   for (int c = 0; c < W / 4; ++c) {
+    const uint4 l = l4[c], u = u4[c];
+    const uint32_t x[4] = {l.x, l.y, l.z, l.w};
+    const uint32_t h[4] = {l.x ^ (u.x >> shift), l.y ^ (u.y >> shift),
+                           l.z ^ (u.z >> shift), l.w ^ (u.w >> shift)};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      uint32_t v = lo[4 * c + j];
+      uint32_t v = x[j];
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        v ^= xh[4 * c + k] & (0u - ((m >> (4 * j + k)) & 1u));
+      for (int k = 0; k < 4; ++k) v ^= h[k] & mm[4 * j + k];
       dst[4 * c + j] = v;
     }
   }
 }
 
-// acc = acc * x (tmp is scratch)
-__device__ __forceinline__ void mul_into(uint32_t* acc, const uint32_t* x,
-                                         uint32_t* tmp) {
-  tower_mul128(acc, x, tmp);
+// one step of reduce_scatter: t[0, N) = the half of t[0, 2N) that lane bit
+// D selects, plus the partner lane's copy of that half
+template <int N, int D>
+__device__ __forceinline__ void halve(uint32_t* t) {
+  const bool top = threadIdx.x & D;
 #pragma unroll
-  for (int i = 0; i < W; ++i) acc[i] = tmp[i];
+  for (int i = 0; i < N; ++i) {
+    const uint32_t a = t[i], b = t[N + i];
+    t[i] = (top ? b : a) ^ __shfl_xor_sync(FULL, top ? a : b, D);
+  }
 }
 
-// acc = x (the first column starts every running product)
-__device__ __forceinline__ void start_or_mul(bool first, uint32_t* acc,
-                                             const uint32_t* x,
-                                             uint32_t* tmp) {
-  if (first) {
+// XOR of the 32 lanes' 128-word rows v (v[i * STRIDE]), scattered: lane l
+// gets words 4l .. 4l+3 in s.  Each of the five steps halves the words a
+// lane holds (124 shuffles in all).  A lane that is not live takes its row
+// as zeros.
+template <int STRIDE>
+__device__ __forceinline__ void reduce_scatter(const uint32_t* v, bool live,
+                                               uint32_t* s) {
+  uint32_t t[W / 2];
+  const bool top = threadIdx.x & 16;
 #pragma unroll
-    for (int i = 0; i < W; ++i) acc[i] = x[i];
-  } else {
-    mul_into(acc, x, tmp);
+  for (int i = 0; i < W / 2; ++i) {
+    const uint32_t a = live ? v[i * STRIDE] : 0u;
+    const uint32_t b = live ? v[(W / 2 + i) * STRIDE] : 0u;
+    t[i] = (top ? b : a) ^ __shfl_xor_sync(FULL, top ? a : b, 16);
   }
+  halve<32, 8>(t);
+  halve<16, 4>(t);
+  halve<8, 2>(t);
+  halve<4, 1>(t);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) s[k] = t[k];
+}
+
+// the block's sums: sum[q][4 * lane + k] ^= s[k] & mask
+__device__ __forceinline__ void add_owned(uint32_t* sum, int q,
+                                          const uint32_t* s, uint32_t mask) {
+  uint32_t* dst = sum + q * W + 4 * (threadIdx.x % 32);
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (s[k] & mask) atomicXor(dst + k, s[k] & mask);
 }
 
 __global__ void __launch_bounds__(THREADS)
     sumcheck_round_kernel(const uint32_t* __restrict__ evals, int comp,
-                          long long col_stride, long long half, int in_word,
-                          int lanes, FoldMasks fm, uint32_t* __restrict__ out) {
-  const int ne = comp - 1;      // points 2 .. C
+                          long long col_stride, long long half,
+                          long long up_off, int lanes, FoldMasks fm,
+                          uint32_t* __restrict__ out) {
+  const bool in_word = up_off == 0;
   const int nout = comp + 2;    // total, points 0 .. C
-  const int shift = lanes / 2;  // in-word: lane j + shift pairs with lane j
+  const int shift = in_word ? lanes / 2 : 0;
   const uint32_t keep_all = lanes == 32 ? ~0u : (1u << lanes) - 1u;
   const uint32_t keep = in_word ? (1u << shift) - 1u : ~0u;
-  uint32_t part[MAX_C + 2][W];
-#pragma unroll 1
-  for (int o = 0; o < nout; ++o)
-#pragma unroll
-    for (int i = 0; i < W; ++i) part[o][i] = 0u;
-
-  uint32_t lo[W], up[W], xh[W], f[W], tmp[W], plo[W], pup[W];
-  uint32_t acc[MAX_C - 1][W];
-  for (long long r = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-       r < half; r += static_cast<long long>(gridDim.x) * THREADS) {
-#pragma unroll 1
-    for (int cc = 0; cc < comp; ++cc) {
-      const uint32_t* col = evals + cc * col_stride;
-      load_row(col + r * W, lo);
-      if (in_word) {
-#pragma unroll
-        for (int i = 0; i < W; ++i) up[i] = lo[i] >> shift;
-      } else {
-        load_row(col + (r + half) * W, up);
-      }
-#pragma unroll
-      for (int i = 0; i < W; ++i) xh[i] = lo[i] ^ up[i];
-      start_or_mul(cc == 0, plo, lo, tmp);
-      start_or_mul(cc == 0, pup, up, tmp);
-#pragma unroll 1
-      for (int e = 0; e < ne; ++e) {
-        fold_point(lo, xh, fm.m[e], f);
-        start_or_mul(cc == 0, acc[e], f, tmp);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < W; ++i) {
-      part[0][i] ^= in_word ? plo[i] & keep_all : plo[i] ^ pup[i];
-      part[1][i] ^= plo[i] & keep;
-      part[2][i] ^= pup[i] & keep;
-    }
-#pragma unroll 1
-    for (int e = 0; e < ne; ++e)
-#pragma unroll
-      for (int i = 0; i < W; ++i) part[3 + e][i] ^= acc[e][i] & keep;
-  }
-
-  // block reduction: warp shuffles, then across the warps in shared memory
-  __shared__ uint32_t red[WARPS][(MAX_C + 2) * W];
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-#pragma unroll 1
-  for (int w = 0; w < nout * W; ++w) {
-    uint32_t v = part[w / W][w % W];
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) v ^= __shfl_xor_sync(0xffffffffu, v, s);
-    if (lane == 0) red[warp][w] = v;
-  }
+  __shared__ uint32_t sum[(MAX_C + 2) * W];
+  for (int w = threadIdx.x; w < nout * W; w += THREADS) sum[w] = 0u;
   __syncthreads();
-  for (int w = threadIdx.x; w < nout * W; w += THREADS) {
-    uint32_t v = 0u;
-#pragma unroll
-    for (int k = 0; k < WARPS; ++k) v ^= red[k][w];
-    if (v) atomicXor(out + w, v);
+
+  uint32_t bufs[3][W];
+  const int lane = threadIdx.x % 32;
+  const long long stride = static_cast<long long>(gridDim.x) * THREADS;
+  for (long long base = static_cast<long long>(blockIdx.x) * THREADS +
+                        (threadIdx.x - lane);
+       base < half; base += stride) {
+    const long long r = base + lane;
+    const bool live = r < half;
+#pragma unroll 1
+    for (int o = 0; o <= comp; ++o) {
+      uint32_t* acc = bufs[0];
+      uint32_t* prod = bufs[1];
+      if (live) {
+        fold_row(evals + r * W, up_off, shift, fm.m[o], acc);
+#pragma unroll 1
+        for (int cc = 1; cc < comp; ++cc) {
+          fold_row(evals + cc * col_stride + r * W, up_off, shift, fm.m[o],
+                   bufs[2]);
+          tower_mul128(acc, bufs[2], prod);
+          uint32_t* t = acc;
+          acc = prod;
+          prod = t;
+        }
+      }
+      uint32_t s[4];
+      reduce_scatter<1>(acc, live, s);
+      if (o == 0) {
+        add_owned(sum, 0, s, in_word ? keep_all : ~0u);
+        add_owned(sum, 1, s, keep);
+      } else if (o == 1) {
+        if (!in_word) add_owned(sum, 0, s, ~0u);
+        add_owned(sum, 2, s, keep);
+      } else {
+        add_owned(sum, 1 + o, s, keep);
+      }
+    }
   }
+
+  __syncthreads();
+  for (int w = threadIdx.x; w < nout * W; w += THREADS)
+    if (sum[w]) atomicXor(out + w, sum[w]);
 }
 
 }  // namespace
@@ -195,13 +213,14 @@ extern "C" int bntt_sumcheck_round(const void* evals, void* out, int comp,
       (!in_word && rows % 2 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   FoldMasks fm = {};
-  for (int e = 0; e < comp - 1; ++e) fm.m[e] = masks[e];
+  fm.m[1] = IDENTITY;
+  for (int e = 0; e < comp - 1; ++e) fm.m[2 + e] = masks[e];
   const long long half = in_word ? 1 : rows / 2;
   long long blocks = (half + THREADS - 1) / THREADS;
   if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
   sumcheck_round_kernel<<<(unsigned)blocks, THREADS, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(evals), comp, b * W, half, in_word ? 1 : 0,
-      lanes, fm, static_cast<uint32_t*>(out));
+      static_cast<const uint32_t*>(evals), comp, b * W, half,
+      in_word ? 0 : half * W, lanes, fm, static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -49,8 +49,8 @@ __all__ = ["HEIGHT", "W", "MAX_COMPOSITION", "challenge_words",
 
 HEIGHT = 7
 W = 1 << HEIGHT
-# the round kernel's per-thread arrays (C + 2 partial sums, C - 1 running
-# products of the points p >= 2) are sized for C <= MAX_COMPOSITION
+# the round kernel's fold matrices (points 0 .. C) and its block's (C + 2)
+# sums are sized for C <= MAX_COMPOSITION
 MAX_COMPOSITION = 8
 
 
@@ -64,17 +64,17 @@ def _fold_matrix(p: int) -> tuple:
         tuple(k for k in range(4) if (cols[k] >> j) & 1) for j in range(4))
 
 
+def _matrix_mask(p: int) -> int:
+    """The matrix of point p as the kernel reads it: bits 4j .. 4j+3 of
+    the word are row j (bit k set: k in row j)."""
+    return sum(1 << (4 * j + k) for j, row in enumerate(_fold_matrix(p))
+               for k in row)
+
+
 def _fold_masks(num_points: int) -> list[int]:
-    """The matrices of points 2 .. num_points-1 as the kernel reads them:
-    bits 4j .. 4j+3 of a point's word are row j (bit k set: k in row j)."""
-    masks = []
-    for p in range(2, num_points):
-        word = 0
-        for j, row in enumerate(_fold_matrix(p)):
-            for k in row:
-                word |= 1 << (4 * j + k)
-        masks.append(word)
-    return masks
+    """The matrices of points 2 .. num_points-1, the host's words for the
+    kernel (which holds those of points 0 and 1, zero and the identity)."""
+    return [_matrix_mask(p) for p in range(2, num_points)]
 
 
 def challenge_words(challenge) -> np.ndarray:

@@ -8,7 +8,9 @@ the CUDA toolkit.  Phases, one line each, in order; any failure ends the
 run with a non-zero exit and no result line:
 
   1. device   — a CUDA device of capability (9, 0), its name and power limit;
-  2. build    — the kernels of binius_ntt_tpu_torch/csrc built by nvcc;
+  2. build    — the kernels of binius_ntt_tpu_torch/csrc built by nvcc,
+     then sumcheck_round_kernel's stack frame, spills and registers as
+     ptxas reports them, on a line of their own;
   3. mul_tiles   — kernel vs its plain torch version on the card, 2^18 rows;
   4. stage_group — kernel vs plain, group by group, at log_h 16 (rates 0
      and 2, production plan) and at (9, 1) and (12, 0) with a forced
@@ -362,6 +364,8 @@ def phase_build() -> None:
              if "registers" in ln or "spill" in ln or "Compiling" in ln]
     say("build", f"nvcc {_build.build_info['seconds']:.1f} s "
         f"(load {wall:.1f} s); ptxas: {' | '.join(usage)}")
+    say("build", "sumcheck_round_kernel: ptxas "
+        f"{_build.kernel_usage('sumcheck_round_kernel') or 'not reported'}")
 
 
 def phase_mul_tiles(dev) -> dict:
@@ -1521,10 +1525,15 @@ def main() -> int:
     n24, batches = 1 << 24, (1 << 24) // 32
     mul_rows = 1 << 18
     mul.update(bound(mul_rows * MUL128_OPS, 3 * mul_rows * W * 4))
-    sc_bounds = {
-        "round": bound(batches // 2 * 3 * MUL128_OPS, 2 * batches * W * 4),
-        "fold": bound(2 * batches // 2 * MUL128_OPS,
-                      2 * batches * W * 4 + batches * W * 4)}
+    # a round multiplies (C - 1) * (C + 1) times a row pair and reads C
+    # rows of each half; a fold multiplies C times a row pair and writes C
+    # rows
+    sc_bounds = {c: {
+        "round": bound(batches // 2 * (c - 1) * (c + 1) * MUL128_OPS,
+                       c * batches * W * 4),
+        "fold": bound(c * batches // 2 * MUL128_OPS,
+                      c * batches * W * 4 + c * batches // 2 * W * 4)}
+        for c in COMPS}
     lane_rows = 1 << 17
     lanes_bound = bound(lane_rows * 4 * TRANSPOSE32_OPS,
                         2 * lane_rows * W * 4)
@@ -1546,7 +1555,12 @@ def main() -> int:
                 c: sc_timing[c][f"{kind}_ms"] for c in COMPS},
             "plain_ms_by_composition": {
                 c: sc_timing[c][f"{kind}_plain_ms"] for c in COMPS},
-            **sc_bounds[kind]}
+            "bound_ms_by_composition": {
+                c: sc_bounds[c][kind]["bound_ms"] for c in COMPS},
+            "share_of_bound_by_composition": {
+                c: sc_bounds[c][kind]["bound_ms"] / sc_timing[c][f"{kind}_ms"]
+                for c in COMPS},
+            **sc_bounds[2][kind]}
 
     def prime_entry(kind: str, line: int) -> dict:
         return {

@@ -192,6 +192,28 @@ def test_sumcheck_kernels_match_plain(dev, comp):
                 folded, cr.fold_plain(x.clone(), CHALLENGE, 1, lanes))
 
 
+@pytest.mark.parametrize("comp", [2, 3, cr.MAX_COMPOSITION])
+@pytest.mark.parametrize("rows", [70, 66, 126])
+def test_round_kernel_with_idle_lanes(dev, comp, rows):
+    """A live half that is not a multiple of 32: the last warp of the
+    grid-stride loop runs with idle lanes, which must add nothing."""
+    x = _rand(30 + comp, (comp, 128, 128), dev)
+    got = cr.round_kernel(x, rows, comp + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cr.round_plain(x, rows, comp + 1))
+
+
+@pytest.mark.parametrize("comp", [2, cr.MAX_COMPOSITION])
+def test_round_kernel_grid_stride(dev, comp):
+    """2^24 evaluations less one row pair: every thread runs more than one
+    row pair of the grid-stride loop, and the last warp has an idle lane."""
+    b = (1 << 24) // 32
+    x = _rand(40 + comp, (comp, b, 128), dev)
+    got = cr.round_kernel(x, b - 2, comp + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cr.round_plain(x, b - 2, comp + 1))
+
+
 def test_sumcheck_kernels_refuse_what_they_do_not_take(dev):
     x = _sumcheck_state(8, 2, dev)                     # (2, 8, 128)
     with pytest.raises(ValueError, match="contiguous"):
