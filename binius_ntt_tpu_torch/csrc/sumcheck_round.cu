@@ -30,22 +30,46 @@
 //
 // Design: one thread per row pair, grid-stride over the live half in warp
 // lock-step (the loop bound is the warp's, so every lane reaches the
-// shuffles).  Point outer: a thread keeps one running product, reading the
-// C columns again for each point (L2 hits for the most part), where a
-// column-outer body keeps C + 1 of them.  After each point the warp
-// reduce-scatters its 32 products (five __shfl_xor_sync halvings of 64 ..
-// 4 words), so that lane l owns words 4l .. 4l+3 of the point summed over
-// the warp, and XORs them into the block's (C + 2, 128) sums in shared
-// memory.  The masks of the in-word rounds and of total-vs-point are
-// constants over the lanes' words and commute with the XOR, so they are
-// applied to the owned words.  C is a runtime argument and the loops over
-// points and columns stay rolled around the multiply (unrolled, ptxas fell
-// back to 32 registers).  Blocks run in no order, so the Pallas accumulator
-// that carries from one grid step to the next becomes one atomicXor per
-// word of the block's sums into the (C + 2, 128) output, which the wrapper
-// zeroes.  XOR is order-free, so the result is exact and deterministic.
-// `rows` is a runtime argument: no row past it is read, and any even rows
-// >= 2 runs, down to the in-word rounds in one thread.
+// shuffles).
+//
+//   * Point outer: a thread keeps one running product, reading the C
+//     columns again for each point, where a column-outer body keeps C + 1
+//     running products.
+//   * Each GF(2^128) product is nine GF(2^32) leaf products, the two-level
+//     Karatsuba of tower::mul_body<7> -> <6> -> <5>.  With a and b in
+//     32-plane chunks a0 .. a3, a leaf multiplies the XOR of a chunk subset
+//     of a by the XOR of the same subset of b.  The leaves go by level-6
+//     product (zm, z0, z2; GROUPED), each product's three summed in
+//     registers, so the product is made in place: zm waits in 64 planes of
+//     scratch, z0 overwrites chunks 0 and 1 of a (no later leaf reads them),
+//     and z2 and mul_body<7>'s combine give all four chunks.  One inline
+//     tower_mul32 call site in a rolled loop over the leaves: 254
+//     registers, no spills, where the GF(2^128) circuit (~510 planes live)
+//     goes through local memory.  tests/test_torch_sumcheck_round_leaf32.py
+//     derives the leaves from the recursion and holds this form to it.
+//   * A thread's words live in shared memory, plane-major and thread-minor
+//     (word i at [i * THREADS + t], free of bank conflicts): the running
+//     product, the folded column and zm, 1.25 KB a thread, so two 64-thread
+//     blocks an SM.  Two blocks of 64 (or one of 128) ran faster than five
+//     of 32 or one of 160 (5 warps), and loading the next leaf's operands
+//     early gained nothing (PERF.md, PR 9).
+//   * After each point the warp reduce-scatters its 32 products (five
+//     __shfl_xor_sync halvings of 64 .. 4 words), so that lane l owns words
+//     4l .. 4l+3 of the point summed over the warp, and XORs them into the
+//     block's (C + 2, 128) sums in shared memory.  The masks of the in-word
+//     rounds and of total-vs-point are constants over the lanes' words and
+//     commute with the XOR, so they are applied to the owned words.
+//
+// C is a runtime argument and the loops over points, columns and leaves
+// stay rolled around the multiply (unrolled, ptxas fell back to 32
+// registers).  Blocks run in no order, so the Pallas accumulator that
+// carries from one grid step to the next becomes one atomicXor per word of
+// each block's sums into the (C + 2, 128) output, which the wrapper zeroes;
+// the grid is what the card holds at once, balanced so that every block
+// runs the same number of row pairs.  XOR is order-free, so the result is
+// exact and deterministic.  `rows` is a runtime argument: no row past it is
+// read, and any even rows >= 2 runs, down to the in-word rounds in one
+// thread.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -55,21 +79,32 @@
 namespace {
 
 constexpr int W = 128;
-constexpr int THREADS = 128;
+constexpr int C32 = 32;              // planes of a GF(2^32) chunk
+constexpr int NCHUNK = W / C32;
+constexpr int THREADS = 64;
+// words a thread keeps: the running product, the folded column and zm
+constexpr int NWORDS = 2 * W + 2 * C32;
 constexpr int MAX_C = 8;
-constexpr long long MAX_BLOCKS = 1024;
 constexpr uint32_t FULL = 0xffffffffu;
 // fold matrix of point 1, the identity: bit 4j + j of row j
 constexpr uint32_t IDENTITY = 0x8421u;
+
+// the leaves as chunk subsets of a (and of b), by level-6 product: zm =
+// (a_lo ^ a_hi)(b_lo ^ b_hi), z0 = a_lo b_lo, z2 = a_hi b_hi, each as its
+// operands' subsets s0, s1 and then s0 ^ s1
+constexpr int N_LEAF = 9;
+__constant__ uint32_t GROUPED[N_LEAF] = {0b0101, 0b1010, 0b1111, 0b0001,
+                                         0b0010, 0b0011, 0b0100, 0b1000,
+                                         0b1100};
 
 // matrix of point p, p = 0 .. C: bits 4j .. 4j+3 of m[p] are row j
 struct FoldMasks {
   uint32_t m[MAX_C + 1];
 };
 
-// dst = lo ^ M(lo ^ up): one row of a column at the point of matrix m.
-// up is the row at lo + up_off shifted right by `shift` (0 outside the
-// in-word rounds, where up_off is the half).
+// dst[i * THREADS] = word i of lo ^ M(lo ^ up): one row of a column at the
+// point of matrix m.  up is the row at lo + up_off shifted right by
+// `shift` (0 outside the in-word rounds, where up_off is the half).
 __device__ __forceinline__ void fold_row(const uint32_t* lo, long long up_off,
                                          int shift, uint32_t m,
                                          uint32_t* dst) {
@@ -78,7 +113,7 @@ __device__ __forceinline__ void fold_row(const uint32_t* lo, long long up_off,
   for (int k = 0; k < 16; ++k) mm[k] = 0u - ((m >> k) & 1u);
   const uint4* l4 = reinterpret_cast<const uint4*>(lo);
   const uint4* u4 = reinterpret_cast<const uint4*>(lo + up_off);
-#pragma unroll
+#pragma unroll 8
   for (int c = 0; c < W / 4; ++c) {
     const uint4 l = l4[c], u = u4[c];
     const uint32_t x[4] = {l.x, l.y, l.z, l.w};
@@ -89,7 +124,73 @@ __device__ __forceinline__ void fold_row(const uint32_t* lo, long long up_off,
       uint32_t v = x[j];
 #pragma unroll
       for (int k = 0; k < 4; ++k) v ^= h[k] & mm[4 * j + k];
-      dst[4 * c + j] = v;
+      dst[(4 * c + j) * THREADS] = v;
+    }
+  }
+}
+
+// d = XOR of the chunks of src (word i at src[i * THREADS]) in subset s
+__device__ __forceinline__ void gather(const uint32_t* src, uint32_t s,
+                                       uint32_t* d) {
+#pragma unroll
+  for (int i = 0; i < C32; ++i) d[i] = 0u;
+#pragma unroll
+  for (int c = 0; c < NCHUNK; ++c) {
+    if ((s >> c) & 1u) {
+#pragma unroll
+      for (int i = 0; i < C32; ++i) d[i] ^= src[(c * C32 + i) * THREADS];
+    }
+  }
+}
+
+// a = a * f in GF(2^128), in place, as the three level-6 products of
+// tower::mul_body<7>, zm = (a_lo ^ a_hi)(b_lo ^ b_hi), z0 = a_lo b_lo and
+// z2 = a_hi b_hi, each as three leaves summed into registers (r).  zm goes
+// to t (64 planes); z0 replaces chunks 0, 1 of a, which no later leaf
+// reads; z2 and the combine then give all four chunks.
+__device__ __forceinline__ void mul_in_place(uint32_t* a, const uint32_t* f,
+                                             uint32_t* t) {
+  uint32_t r[2 * C32];
+#pragma unroll 1
+  for (int l = 0; l < N_LEAF; ++l) {
+    const int g = l / 3, k = l % 3;
+    uint32_t x[C32], y[C32], p[C32], p1[C32];
+    gather(a, GROUPED[l], x);
+    gather(f, GROUPED[l], y);
+    tower_mul32(x, y, p);
+    // lo = L(s0) ^ L(s1), hi = L(s0 ^ s1) ^ L(s0) ^ L(s1) ^ alpha L(s1)
+    if (k == 0) {
+#pragma unroll
+      for (int i = 0; i < C32; ++i) r[i] = r[C32 + i] = p[i];
+    } else if (k == 1) {
+      tower::mul_alpha<5>(p, p1);
+#pragma unroll
+      for (int i = 0; i < C32; ++i) {
+        r[i] ^= p[i];
+        r[C32 + i] ^= p[i] ^ p1[i];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < C32; ++i) r[C32 + i] ^= p[i];
+      if (g == 0) {
+#pragma unroll
+        for (int i = 0; i < 2 * C32; ++i) t[i * THREADS] = r[i];
+      } else if (g == 1) {
+#pragma unroll
+        for (int i = 0; i < 2 * C32; ++i) a[i * THREADS] = r[i];
+      } else {
+        tower::mul_alpha<5>(r + C32, p1);
+#pragma unroll
+        for (int i = 0; i < C32; ++i) {
+          const uint32_t c0 = a[i * THREADS] ^ r[i];
+          const uint32_t c1 = a[(C32 + i) * THREADS] ^ r[C32 + i];
+          a[i * THREADS] = c0;
+          a[(C32 + i) * THREADS] = c1;
+          a[(2 * C32 + i) * THREADS] = t[i * THREADS] ^ c0 ^ r[C32 + i];
+          a[(3 * C32 + i) * THREADS] =
+              t[(C32 + i) * THREADS] ^ c1 ^ r[i] ^ p1[i];
+        }
+      }
     }
   }
 }
@@ -106,19 +207,18 @@ __device__ __forceinline__ void halve(uint32_t* t) {
   }
 }
 
-// XOR of the 32 lanes' 128-word rows v (v[i * STRIDE]), scattered: lane l
-// gets words 4l .. 4l+3 in s.  Each of the five steps halves the words a
-// lane holds (124 shuffles in all).  A lane that is not live takes its row
-// as zeros.
-template <int STRIDE>
+// XOR of the 32 lanes' 128-word rows v (word i at v[i * THREADS]),
+// scattered: lane l gets words 4l .. 4l+3 in s.  Each of the five steps
+// halves the words a lane holds (124 shuffles in all).  A lane that is not
+// live takes its row as zeros.
 __device__ __forceinline__ void reduce_scatter(const uint32_t* v, bool live,
                                                uint32_t* s) {
   uint32_t t[W / 2];
   const bool top = threadIdx.x & 16;
 #pragma unroll
   for (int i = 0; i < W / 2; ++i) {
-    const uint32_t a = live ? v[i * STRIDE] : 0u;
-    const uint32_t b = live ? v[(W / 2 + i) * STRIDE] : 0u;
+    const uint32_t a = live ? v[i * THREADS] : 0u;
+    const uint32_t b = live ? v[(W / 2 + i) * THREADS] : 0u;
     t[i] = (top ? b : a) ^ __shfl_xor_sync(FULL, top ? a : b, 16);
   }
   halve<32, 8>(t);
@@ -143,16 +243,21 @@ __global__ void __launch_bounds__(THREADS)
                           long long col_stride, long long half,
                           long long up_off, int lanes, FoldMasks fm,
                           uint32_t* __restrict__ out) {
+  extern __shared__ uint4 smem4[];
+  uint32_t* sm = reinterpret_cast<uint32_t*>(smem4);
+  uint32_t* sum = sm + NWORDS * THREADS;
   const bool in_word = up_off == 0;
   const int nout = comp + 2;    // total, points 0 .. C
   const int shift = in_word ? lanes / 2 : 0;
   const uint32_t keep_all = lanes == 32 ? ~0u : (1u << lanes) - 1u;
   const uint32_t keep = in_word ? (1u << shift) - 1u : ~0u;
-  __shared__ uint32_t sum[(MAX_C + 2) * W];
   for (int w = threadIdx.x; w < nout * W; w += THREADS) sum[w] = 0u;
   __syncthreads();
 
-  uint32_t bufs[3][W];
+  // this thread's words: word i of a buffer at buf[i * THREADS]
+  uint32_t* const mine = sm + threadIdx.x;
+  uint32_t* const f = mine + W * THREADS;
+  uint32_t* const t = mine + 2 * W * THREADS;
   const int lane = threadIdx.x % 32;
   const long long stride = static_cast<long long>(gridDim.x) * THREADS;
   for (long long base = static_cast<long long>(blockIdx.x) * THREADS +
@@ -162,22 +267,18 @@ __global__ void __launch_bounds__(THREADS)
     const bool live = r < half;
 #pragma unroll 1
     for (int o = 0; o <= comp; ++o) {
-      uint32_t* acc = bufs[0];
-      uint32_t* prod = bufs[1];
+      const uint32_t m = fm.m[o];
+      uint32_t* acc = mine;
       if (live) {
-        fold_row(evals + r * W, up_off, shift, fm.m[o], acc);
+        fold_row(evals + r * W, up_off, shift, m, acc);
 #pragma unroll 1
         for (int cc = 1; cc < comp; ++cc) {
-          fold_row(evals + cc * col_stride + r * W, up_off, shift, fm.m[o],
-                   bufs[2]);
-          tower_mul128(acc, bufs[2], prod);
-          uint32_t* t = acc;
-          acc = prod;
-          prod = t;
+          fold_row(evals + cc * col_stride + r * W, up_off, shift, m, f);
+          mul_in_place(acc, f, t);
         }
       }
       uint32_t s[4];
-      reduce_scatter<1>(acc, live, s);
+      reduce_scatter(acc, live, s);
       if (o == 0) {
         add_owned(sum, 0, s, in_word ? keep_all : ~0u);
         add_owned(sum, 1, s, keep);
@@ -216,9 +317,28 @@ extern "C" int bntt_sumcheck_round(const void* evals, void* out, int comp,
   fm.m[1] = IDENTITY;
   for (int e = 0; e < comp - 1; ++e) fm.m[2 + e] = masks[e];
   const long long half = in_word ? 1 : rows / 2;
+  const int smem = (NWORDS * THREADS + (comp + 2) * W) * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      sumcheck_round_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, sumcheck_round_kernel, THREADS, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // as many blocks as the card holds at once, each with the same number of
+  // row pairs (one fewer for some)
+  const long long slots =
+      static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   long long blocks = (half + THREADS - 1) / THREADS;
-  if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
-  sumcheck_round_kernel<<<(unsigned)blocks, THREADS, 0,
+  if (blocks > slots) {
+    const long long iters = (blocks + slots - 1) / slots;
+    blocks = (blocks + iters - 1) / iters;
+  }
+  sumcheck_round_kernel<<<(unsigned)blocks, THREADS, smem,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(evals), comp, b * W, half,
       in_word ? 0 : half * W, lanes, fm, static_cast<uint32_t*>(out));

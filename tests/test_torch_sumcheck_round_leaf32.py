@@ -4,12 +4,14 @@ csrc/sumcheck_round.cu runs the points outer (one running product a
 thread), sums a warp's 32 products with a five-step reduce-scatter (lane l
 ends with words 4l .. 4l+3), and computes each GF(2^128) product as nine
 GF(2^32) leaf products, the two-level Karatsuba of tower::mul_body<7> ->
-<6> -> <5>.  These tests derive the leaf table from that recursion, hold it
-to the table in the kernel's source, and hold torch transliterations of the
-three pieces against the port's multiply, the JAX package's multiply,
-``round_plain`` and the JAX ``round_emulate``.  Every comparison is exact
-(word equality).  The kernel itself runs in tests/test_torch_cuda.py on the
-card.
+<6> -> <5>, in place: the leaves of each level-6 product summed in
+registers.  These tests derive the leaf table (chunk subsets and the maps
+into the output chunks) from that recursion, hold the kernel's leaf order
+to it, and hold torch transliterations of the table, of the kernel's
+in-place product, of the reduce-scatter and of the point-outer round
+against the port's multiply, the JAX package's multiply, ``round_plain``
+and the JAX ``round_emulate``.  Every comparison is exact (word equality).
+The kernel itself runs in tests/test_torch_cuda.py on the card.
 """
 
 import re
@@ -28,9 +30,12 @@ from binius_ntt_tpu_torch.utils.bits import lsr, to_numpy, to_torch
 
 KERNEL = (Path(cr.__file__).resolve().parents[1] / "csrc"
           / "sumcheck_round.cu")
-# the kernel's leaf order: a's (and b's) chunk subsets
+# the leaves by a's (and b's) chunk subsets, as mul_body<6> takes them
 LEAF_ORDER = (0b0001, 0b0010, 0b0011, 0b0100, 0b1000, 0b1100, 0b0101,
               0b1010, 0b1111)
+# the kernel's grouping: the level-6 products zm, z0, z2 of mul_body<7>,
+# each as its operands' chunk subsets (s0, s1); its leaves s0, s1, s0 ^ s1
+GROUPS = ((0b0101, 0b1010), (0b0001, 0b0010), (0b0100, 0b1000))
 
 
 def _words(seed, shape):
@@ -68,14 +73,14 @@ def _karatsuba_leaves() -> list[dict]:
 
 
 def leaf_table() -> list[tuple[int, tuple]]:
-    """(subset, maps into output chunks 0..3) in the kernel's leaf order."""
+    """(subset, maps into output chunks 0..3) in LEAF_ORDER."""
     chunks = _karatsuba_leaves()
     return [(s, tuple(chunk.get(s, 0) for chunk in chunks))
             for s in LEAF_ORDER]
 
 
 def leaf_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """csrc/sumcheck_round.cu's mul_leaves in torch over (..., 128) planes:
+    """The GF(2^128) product by the leaf table over (..., 128) planes:
     leaf 0 writes every output chunk, the others add through identity,
     alpha_5 and alpha_5 twice."""
     ca = a.reshape(a.shape[:-1] + (4, 32))
@@ -94,6 +99,38 @@ def leaf_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                     v ^= powers[k]
             z[..., c, :] = v if first == 0 else z[..., c, :] ^ v
     return z.reshape(a.shape)
+
+
+def grouped_order() -> list[int]:
+    return [s for s0, s1 in GROUPS for s in (s0, s1, s0 ^ s1)]
+
+
+def in_place_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """csrc/sumcheck_round.cu's mul_in_place in torch over (..., 128)
+    planes: per group, lo = L(s0) ^ L(s1) and hi = L(s0 ^ s1) ^ L(s0) ^
+    L(s1) ^ alpha L(s1) in registers; zm to the scratch t, z0 over chunks 0
+    and 1 of a, then z2 and the combine of mul_body<7> over all four."""
+    ca = a.reshape(a.shape[:-1] + (4, 32)).clone()
+    cb = b.reshape(b.shape[:-1] + (4, 32))
+    def alpha(x):
+        return bitsliced.multiply_alpha(x, 5)
+
+    t = None
+    for g, (s0, s1) in enumerate(GROUPS):
+        p0, p1, pm = (bitsliced.multiply(sum_chunks(ca, s),
+                                         sum_chunks(cb, s), 5)
+                      for s in (s0, s1, s0 ^ s1))
+        lo, hi = p0 ^ p1, pm ^ p0 ^ p1 ^ alpha(p1)
+        if g == 0:
+            t = (lo, hi)
+        elif g == 1:
+            ca[..., 0, :], ca[..., 1, :] = lo, hi
+        else:
+            c0, c1 = ca[..., 0, :] ^ lo, ca[..., 1, :] ^ hi
+            ca[..., 2, :] = t[0] ^ c0 ^ hi
+            ca[..., 3, :] = t[1] ^ c1 ^ lo ^ alpha(hi)
+            ca[..., 0, :], ca[..., 1, :] = c0, c1
+    return ca.reshape(a.shape)
 
 
 def sum_chunks(chunks: torch.Tensor, subset: int) -> torch.Tensor:
@@ -136,8 +173,8 @@ def fold_at(lo: torch.Tensor, up: torch.Tensor, mask: int) -> torch.Tensor:
 def round_model(evals: torch.Tensor, rows: int, num_points: int,
                 lanes: int = 32) -> torch.Tensor:
     """csrc/sumcheck_round.cu's round in torch: points outer, the products
-    by leaf_multiply, each warp's 32 row pairs (idle lanes zero) summed by
-    reduce_scatter, the masks applied to the owned words."""
+    by in_place_multiply, each warp's 32 row pairs (idle lanes zero) summed
+    by reduce_scatter, the masks applied to the owned words."""
     in_word = rows == 1
     if in_word:
         lo = evals[:, :1]
@@ -155,7 +192,7 @@ def round_model(evals: torch.Tensor, rows: int, num_points: int,
         f = fold_at(lo, up, masks[o])
         acc = f[0]
         for c in range(1, f.shape[0]):
-            acc = leaf_multiply(acc, f[c])
+            acc = in_place_multiply(acc, f[c])
         lanes_rows = torch.zeros((warps * 32, 128), dtype=torch.int32)
         lanes_rows[:half] = acc
         owned = reduce_scatter(lanes_rows.view(warps, 32, 128))
@@ -188,6 +225,19 @@ def test_leaf_table_covers_the_karatsuba():
     assert first == 0b0001 and maps == (1, 1, 1, 1)   # leaf 0 writes
 
 
+def test_kernel_leaves_are_the_table_s_grouped():
+    """The kernel's GROUPED, in its source, is the table's nine leaves,
+    three to each level-6 product of mul_body<7>: zm = (a_lo ^ a_hi) *
+    (b_lo ^ b_hi), z0 = a_lo * b_lo, z2 = a_hi * b_hi."""
+    text = KERNEL.read_text()
+    body = re.search(r"GROUPED\[N_LEAF\] = \{([^}]*)\}", text).group(1)
+    grouped = [int(w, 2) for w in re.findall(r"0b([01]+)", body)]
+    assert grouped == grouped_order()
+    assert sorted(grouped) == sorted(LEAF_ORDER)
+    lo, hi = 0b0011, 0b1100              # a_lo, a_hi as chunk subsets
+    assert [s0 | s1 for s0, s1 in GROUPS] == [lo | hi, lo, hi]
+
+
 def test_point_masks_of_zero_and_one():
     """The kernel holds the matrices of points 0 and 1 itself: zero and
     the identity (IDENTITY in the source)."""
@@ -197,11 +247,13 @@ def test_point_masks_of_zero_and_one():
     assert cr._fold_masks(5) == [cr._matrix_mask(p) for p in (2, 3, 4)]
 
 
+@pytest.mark.parametrize("form", ["table", "in_place"])
 @pytest.mark.parametrize("seed", [1, 2, 3])
-def test_leaf_product_is_the_tower_product(seed):
+def test_leaf_product_is_the_tower_product(seed, form):
     a = _words(seed, (5, 7, 128))
     b = _words(seed + 10, (5, 7, 128))
-    got = to_numpy(leaf_multiply(to_torch(a), to_torch(b)))
+    mul = leaf_multiply if form == "table" else in_place_multiply
+    got = to_numpy(mul(to_torch(a), to_torch(b)))
     assert np.array_equal(
         got, to_numpy(bitsliced.multiply(to_torch(a), to_torch(b), 7)))
     assert np.array_equal(
@@ -219,7 +271,9 @@ def test_leaf_product_of_special_operands():
     for c in range(4):
         b = torch.zeros_like(a)
         b[:, 32 * c:32 * c + 32] = a[:, 32 * c:32 * c + 32]
-        assert torch.equal(leaf_multiply(a, b), bitsliced.multiply(a, b, 7))
+        want = bitsliced.multiply(a, b, 7)
+        assert torch.equal(leaf_multiply(a, b), want)
+        assert torch.equal(in_place_multiply(a, b), want)
 
 
 # ---- the warp reduce-scatter ---------------------------------------------
