@@ -28,13 +28,15 @@
 // 2 * C * 512 bytes of reads: ~15 ops per byte at C = 2, ~38 at C = 4,
 // against a balance of ~5 for this card.
 //
-// Design: one thread per row pair, grid-stride over the live half in warp
-// lock-step (the loop bound is the warp's, so every lane reaches the
-// shuffles).
+// Design: a warp's unit of work is one point of 32 row pairs, a row pair
+// a lane (idle lanes past the half add nothing); warps grid-stride over
+// the units, the C + 1 points of a group of row pairs next to each other.
 //
-//   * Point outer: a thread keeps one running product, reading the C
-//     columns again for each point, where a column-outer body keeps C + 1
-//     running products.
+//   * Point outer: a thread keeps one running product, where a
+//     column-outer body keeps C + 1 of them.  The columns are read again
+//     for each point, by neighbouring warps at about the same time, and
+//     the in-word rounds (one row pair) spread their points over C + 1
+//     warps.
 //   * Each GF(2^128) product is nine GF(2^32) leaf products, the two-level
 //     Karatsuba of tower::mul_body<7> -> <6> -> <5>.  With a and b in
 //     32-plane chunks a0 .. a3, a leaf multiplies the XOR of a chunk subset
@@ -60,16 +62,16 @@
 //     rounds and of total-vs-point are constants over the lanes' words and
 //     commute with the XOR, so they are applied to the owned words.
 //
-// C is a runtime argument and the loops over points, columns and leaves
+// C is a runtime argument and the loops over units, columns and leaves
 // stay rolled around the multiply (unrolled, ptxas fell back to 32
 // registers).  Blocks run in no order, so the Pallas accumulator that
 // carries from one grid step to the next becomes one atomicXor per word of
 // each block's sums into the (C + 2, 128) output, which the wrapper zeroes;
-// the grid is what the card holds at once, balanced so that every block
-// runs the same number of row pairs.  XOR is order-free, so the result is
+// the grid is at most what the card holds at once, balanced so that every
+// warp runs the same number of units.  XOR is order-free, so the result is
 // exact and deterministic.  `rows` is a runtime argument: no row past it is
-// read, and any even rows >= 2 runs, down to the in-word rounds in one
-// thread.
+// read, and any even rows >= 2 runs, down to the in-word rounds' one row
+// pair.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -82,6 +84,7 @@ constexpr int W = 128;
 constexpr int C32 = 32;              // planes of a GF(2^32) chunk
 constexpr int NCHUNK = W / C32;
 constexpr int THREADS = 64;
+constexpr int WARPS = THREADS / 32;
 // words a thread keeps: the running product, the folded column and zm
 constexpr int NWORDS = 2 * W + 2 * C32;
 constexpr int MAX_C = 8;
@@ -258,36 +261,37 @@ __global__ void __launch_bounds__(THREADS)
   uint32_t* const mine = sm + threadIdx.x;
   uint32_t* const f = mine + W * THREADS;
   uint32_t* const t = mine + 2 * W * THREADS;
-  const int lane = threadIdx.x % 32;
-  const long long stride = static_cast<long long>(gridDim.x) * THREADS;
-  for (long long base = static_cast<long long>(blockIdx.x) * THREADS +
-                        (threadIdx.x - lane);
-       base < half; base += stride) {
-    const long long r = base + lane;
+  const int npts = comp + 1;
+  const long long units = (half + 31) / 32 * npts;
+  const long long nwarps = static_cast<long long>(gridDim.x) * WARPS;
+  for (long long u = static_cast<long long>(blockIdx.x) * WARPS +
+                     threadIdx.x / 32;
+       u < units; u += nwarps) {
+    const int o = static_cast<int>(u % npts);
+    const long long r = u / npts * 32 + threadIdx.x % 32;
     const bool live = r < half;
+    uint32_t m = 0u;    // fm.m[o], picked without a local copy of fm
+#pragma unroll
+    for (int q = 0; q <= MAX_C; ++q) m = q == o ? fm.m[q] : m;
+    uint32_t* const acc = mine;
+    if (live) {
+      fold_row(evals + r * W, up_off, shift, m, acc);
 #pragma unroll 1
-    for (int o = 0; o <= comp; ++o) {
-      const uint32_t m = fm.m[o];
-      uint32_t* acc = mine;
-      if (live) {
-        fold_row(evals + r * W, up_off, shift, m, acc);
-#pragma unroll 1
-        for (int cc = 1; cc < comp; ++cc) {
-          fold_row(evals + cc * col_stride + r * W, up_off, shift, m, f);
-          mul_in_place(acc, f, t);
-        }
+      for (int cc = 1; cc < comp; ++cc) {
+        fold_row(evals + cc * col_stride + r * W, up_off, shift, m, f);
+        mul_in_place(acc, f, t);
       }
-      uint32_t s[4];
-      reduce_scatter(acc, live, s);
-      if (o == 0) {
-        add_owned(sum, 0, s, in_word ? keep_all : ~0u);
-        add_owned(sum, 1, s, keep);
-      } else if (o == 1) {
-        if (!in_word) add_owned(sum, 0, s, ~0u);
-        add_owned(sum, 2, s, keep);
-      } else {
-        add_owned(sum, 1 + o, s, keep);
-      }
+    }
+    uint32_t s[4];
+    reduce_scatter(acc, live, s);
+    if (o == 0) {
+      add_owned(sum, 0, s, in_word ? keep_all : ~0u);
+      add_owned(sum, 1, s, keep);
+    } else if (o == 1) {
+      if (!in_word) add_owned(sum, 0, s, ~0u);
+      add_owned(sum, 2, s, keep);
+    } else {
+      add_owned(sum, 1 + o, s, keep);
     }
   }
 
@@ -329,11 +333,12 @@ extern "C" int bntt_sumcheck_round(const void* evals, void* out, int comp,
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, sumcheck_round_kernel, THREADS, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // as many blocks as the card holds at once, each with the same number of
-  // row pairs (one fewer for some)
+  // at most as many blocks as the card holds at once, each warp with the
+  // same number of units (one fewer for some)
   const long long slots =
       static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  long long blocks = (half + THREADS - 1) / THREADS;
+  const long long units = (half + 31) / 32 * (comp + 1);
+  long long blocks = (units + WARPS - 1) / WARPS;
   if (blocks > slots) {
     const long long iters = (blocks + slots - 1) / slots;
     blocks = (blocks + iters - 1) / iters;

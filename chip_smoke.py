@@ -735,8 +735,8 @@ def timed_protocol(prover, challenges) -> list[float]:
 def phase_sumcheck_timing(dev, words, challenges, worst,
                           num_vars=24) -> dict:
     """Times at 2^24; first holds each kernel to its plain version on the
-    timed input (the grid-stride loop runs more than one row pair per
-    thread only from num_vars 23), raising ``worst`` to what it finds."""
+    timed input (the largest grid of the protocol), raising ``worst`` to
+    what it finds."""
     b = (1 << num_vars) // 32
     out = {}
     for comp in COMPS:

@@ -195,8 +195,8 @@ def test_sumcheck_kernels_match_plain(dev, comp):
 @pytest.mark.parametrize("comp", [2, 3, cr.MAX_COMPOSITION])
 @pytest.mark.parametrize("rows", [70, 66, 126])
 def test_round_kernel_with_idle_lanes(dev, comp, rows):
-    """A live half that is not a multiple of 32: the last warp of the
-    grid-stride loop runs with idle lanes, which must add nothing."""
+    """A live half that is not a multiple of 32: the last group of 32 row
+    pairs runs with idle lanes, which must add nothing."""
     x = _rand(30 + comp, (comp, 128, 128), dev)
     got = cr.round_kernel(x, rows, comp + 1)
     torch.cuda.synchronize()
@@ -205,8 +205,8 @@ def test_round_kernel_with_idle_lanes(dev, comp, rows):
 
 @pytest.mark.parametrize("comp", [2, cr.MAX_COMPOSITION])
 def test_round_kernel_grid_stride(dev, comp):
-    """2^24 evaluations less one row pair: every thread runs more than one
-    row pair of the grid-stride loop, and the last warp has an idle lane."""
+    """2^24 evaluations less one row pair: every warp runs many units of
+    the grid-stride loop, and the last group has an idle lane."""
     b = (1 << 24) // 32
     x = _rand(40 + comp, (comp, b, 128), dev)
     got = cr.round_kernel(x, b - 2, comp + 1)

@@ -172,9 +172,10 @@ def fold_at(lo: torch.Tensor, up: torch.Tensor, mask: int) -> torch.Tensor:
 
 def round_model(evals: torch.Tensor, rows: int, num_points: int,
                 lanes: int = 32) -> torch.Tensor:
-    """csrc/sumcheck_round.cu's round in torch: points outer, the products
-    by in_place_multiply, each warp's 32 row pairs (idle lanes zero) summed
-    by reduce_scatter, the masks applied to the owned words."""
+    """csrc/sumcheck_round.cu's round in torch: unit u is point u % P of
+    the group of 32 row pairs u // P (a lane each, idle lanes past the half
+    zero); its products by in_place_multiply, summed over the warp by
+    reduce_scatter, the masks applied to the owned words."""
     in_word = rows == 1
     if in_word:
         lo = evals[:, :1]
@@ -186,20 +187,17 @@ def round_model(evals: torch.Tensor, rows: int, num_points: int,
     masks += cr._fold_masks(num_points)
     keep_all = cr._lane_mask(lanes)
     keep = cr._lane_mask(lanes // 2) if in_word else -1
-    warps = -(-half // 32)
     sums = torch.zeros((num_points + 1, 128), dtype=torch.int32)
-    for o in range(num_points):
-        f = fold_at(lo, up, masks[o])
+    for u in range(-(-half // 32) * num_points):
+        o, first = u % num_points, u // num_points * 32
+        live = slice(first, min(first + 32, half))
+        f = fold_at(lo[:, live], up[:, live], masks[o])
         acc = f[0]
         for c in range(1, f.shape[0]):
             acc = in_place_multiply(acc, f[c])
-        lanes_rows = torch.zeros((warps * 32, 128), dtype=torch.int32)
-        lanes_rows[:half] = acc
-        owned = reduce_scatter(lanes_rows.view(warps, 32, 128))
-        s = owned[0]
-        for w in range(1, warps):
-            s = s ^ owned[w]
-        s = s.reshape(128)
+        warp = torch.zeros((32, 128), dtype=torch.int32)
+        warp[:acc.shape[0]] = acc
+        s = reduce_scatter(warp).reshape(128)
         if o == 0:
             sums[0] ^= s & (keep_all if in_word else -1)
             sums[1] ^= s & keep

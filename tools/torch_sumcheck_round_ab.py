@@ -10,7 +10,8 @@ change, parent) compare two versions on one card.  For C = 2, 3, 4 it holds
 live row count b .. 2, two counts whose half is not a multiple of 32, then
 the in-word rounds at lanes 32 .. 1) and on the timed input, 2^24
 evaluations of numpy-seeded random words; then it times the first round
-there with CUDA events (median of 7), and the fold beside it.  Prints
+there with CUDA events (median of 7), the fold beside it, and the first
+in-word round (rows = 1, lanes = 32) on the same input.  Prints
 ptxas's figures for sumcheck_round_kernel (read with this script's own
 ``_build.kernel_usage``, so a parent checkout reports them too) and one
 JSON object with the card's name and power limit.  Imports no JAX.
@@ -99,7 +100,9 @@ def main() -> int:
             "held_shapes": shapes + 1,
             "round_ms": device_time(cr.round_kernel, x, b, comp + 1) * 1e3,
             # the fold works in place: each call folds the same rows again
-            "fold_ms": device_time(cr.fold_kernel, x, challenge, b) * 1e3}
+            "fold_ms": device_time(cr.fold_kernel, x, challenge, b) * 1e3,
+            "in_word_ms": device_time(cr.round_kernel, x, 1, comp + 1,
+                                      32) * 1e3}
         print(f"[time] C={comp}: {out[f'C={comp}']}", flush=True)
     print(json.dumps(out))
     return 0
