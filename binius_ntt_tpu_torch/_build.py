@@ -123,10 +123,12 @@ def library() -> ctypes.CDLL:
 
 
 def kernel_usage(name: str, log: str | None = None) -> str:
-    """What ptxas reported for the entry function whose name holds
-    ``name`` in the build log (``build_info["log"]`` unless given): its
-    stack frame and spill line, then its registers line; "" when the log
-    does not have it (a cached library)."""
+    """What ptxas reported for the first entry function whose mangled name
+    holds ``name`` in the build log (``build_info["log"]`` unless given):
+    its stack frame and spill line, then its registers line; "" when the
+    log does not have it (a cached library).  A template instantiation is
+    named by the start of its mangled arguments, as in
+    ``"sumcheck_fold_kernelILb1E"`` for ``sumcheck_fold_kernel<true>``."""
     lines = [ln.strip() for ln in
              (build_info.get("log", "") if log is None else log).splitlines()]
     for i, ln in enumerate(lines):

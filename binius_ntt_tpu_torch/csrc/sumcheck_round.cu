@@ -37,18 +37,9 @@
 //     for each point, by neighbouring warps at about the same time, and
 //     the in-word rounds (one row pair) spread their points over C + 1
 //     warps.
-//   * Each GF(2^128) product is nine GF(2^32) leaf products, the two-level
-//     Karatsuba of tower::mul_body<7> -> <6> -> <5>.  With a and b in
-//     32-plane chunks a0 .. a3, a leaf multiplies the XOR of a chunk subset
-//     of a by the XOR of the same subset of b.  The leaves go by level-6
-//     product (zm, z0, z2; GROUPED), each product's three summed in
-//     registers, so the product is made in place: zm waits in 64 planes of
-//     scratch, z0 overwrites chunks 0 and 1 of a (no later leaf reads them),
-//     and z2 and mul_body<7>'s combine give all four chunks.  One inline
-//     tower_mul32 call site in a rolled loop over the leaves: 254
-//     registers, no spills, where the GF(2^128) circuit (~510 planes live)
-//     goes through local memory.  tests/test_torch_sumcheck_round_leaf32.py
-//     derives the leaves from the recursion and holds this form to it.
+//   * Each GF(2^128) product is nine GF(2^32) leaf products, made in place
+//     (csrc/tower_leaf32.cuh, shared with the fold): one inline tower_mul32
+//     call site in a rolled loop over the leaves, no spills.
 //   * A thread's words live in shared memory, plane-major and thread-minor
 //     (word i at [i * THREADS + t], free of bank conflicts): the running
 //     product, the folded column and zm, 1.25 KB a thread, so two 64-thread
@@ -76,13 +67,12 @@
 
 #include <cstdint>
 
-#include "tower_mul.cuh"
+#include "tower_leaf32.cuh"
 
 namespace {
 
 constexpr int W = 128;
-constexpr int C32 = 32;              // planes of a GF(2^32) chunk
-constexpr int NCHUNK = W / C32;
+using leaf32::C32;
 constexpr int THREADS = 64;
 constexpr int WARPS = THREADS / 32;
 // words a thread keeps: the running product, the folded column and zm
@@ -91,14 +81,6 @@ constexpr int MAX_C = 8;
 constexpr uint32_t FULL = 0xffffffffu;
 // fold matrix of point 1, the identity: bit 4j + j of row j
 constexpr uint32_t IDENTITY = 0x8421u;
-
-// the leaves as chunk subsets of a (and of b), by level-6 product: zm =
-// (a_lo ^ a_hi)(b_lo ^ b_hi), z0 = a_lo b_lo, z2 = a_hi b_hi, each as its
-// operands' subsets s0, s1 and then s0 ^ s1
-constexpr int N_LEAF = 9;
-__constant__ uint32_t GROUPED[N_LEAF] = {0b0101, 0b1010, 0b1111, 0b0001,
-                                         0b0010, 0b0011, 0b0100, 0b1000,
-                                         0b1100};
 
 // matrix of point p, p = 0 .. C: bits 4j .. 4j+3 of m[p] are row j
 struct FoldMasks {
@@ -128,72 +110,6 @@ __device__ __forceinline__ void fold_row(const uint32_t* lo, long long up_off,
 #pragma unroll
       for (int k = 0; k < 4; ++k) v ^= h[k] & mm[4 * j + k];
       dst[(4 * c + j) * THREADS] = v;
-    }
-  }
-}
-
-// d = XOR of the chunks of src (word i at src[i * THREADS]) in subset s
-__device__ __forceinline__ void gather(const uint32_t* src, uint32_t s,
-                                       uint32_t* d) {
-#pragma unroll
-  for (int i = 0; i < C32; ++i) d[i] = 0u;
-#pragma unroll
-  for (int c = 0; c < NCHUNK; ++c) {
-    if ((s >> c) & 1u) {
-#pragma unroll
-      for (int i = 0; i < C32; ++i) d[i] ^= src[(c * C32 + i) * THREADS];
-    }
-  }
-}
-
-// a = a * f in GF(2^128), in place, as the three level-6 products of
-// tower::mul_body<7>, zm = (a_lo ^ a_hi)(b_lo ^ b_hi), z0 = a_lo b_lo and
-// z2 = a_hi b_hi, each as three leaves summed into registers (r).  zm goes
-// to t (64 planes); z0 replaces chunks 0, 1 of a, which no later leaf
-// reads; z2 and the combine then give all four chunks.
-__device__ __forceinline__ void mul_in_place(uint32_t* a, const uint32_t* f,
-                                             uint32_t* t) {
-  uint32_t r[2 * C32];
-#pragma unroll 1
-  for (int l = 0; l < N_LEAF; ++l) {
-    const int g = l / 3, k = l % 3;
-    uint32_t x[C32], y[C32], p[C32], p1[C32];
-    gather(a, GROUPED[l], x);
-    gather(f, GROUPED[l], y);
-    tower_mul32(x, y, p);
-    // lo = L(s0) ^ L(s1), hi = L(s0 ^ s1) ^ L(s0) ^ L(s1) ^ alpha L(s1)
-    if (k == 0) {
-#pragma unroll
-      for (int i = 0; i < C32; ++i) r[i] = r[C32 + i] = p[i];
-    } else if (k == 1) {
-      tower::mul_alpha<5>(p, p1);
-#pragma unroll
-      for (int i = 0; i < C32; ++i) {
-        r[i] ^= p[i];
-        r[C32 + i] ^= p[i] ^ p1[i];
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < C32; ++i) r[C32 + i] ^= p[i];
-      if (g == 0) {
-#pragma unroll
-        for (int i = 0; i < 2 * C32; ++i) t[i * THREADS] = r[i];
-      } else if (g == 1) {
-#pragma unroll
-        for (int i = 0; i < 2 * C32; ++i) a[i * THREADS] = r[i];
-      } else {
-        tower::mul_alpha<5>(r + C32, p1);
-#pragma unroll
-        for (int i = 0; i < C32; ++i) {
-          const uint32_t c0 = a[i * THREADS] ^ r[i];
-          const uint32_t c1 = a[(C32 + i) * THREADS] ^ r[C32 + i];
-          a[i * THREADS] = c0;
-          a[(C32 + i) * THREADS] = c1;
-          a[(2 * C32 + i) * THREADS] = t[i * THREADS] ^ c0 ^ r[C32 + i];
-          a[(3 * C32 + i) * THREADS] =
-              t[(C32 + i) * THREADS] ^ c1 ^ r[i] ^ p1[i];
-        }
-      }
     }
   }
 }
@@ -279,7 +195,8 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll 1
       for (int cc = 1; cc < comp; ++cc) {
         fold_row(evals + cc * col_stride + r * W, up_off, shift, m, f);
-        mul_in_place(acc, f, t);
+        leaf32::mul_in_place<THREADS>(
+            acc, leaf32::GatherLeaf<THREADS>{f}, t);
       }
     }
     uint32_t s[4];

@@ -190,6 +190,11 @@ COUNTED = (ck.mul_tiles, cf.stage_group, cr.round_kernel, cr.fold_kernel,
            cf32.bitslice_lane_groups, cf32.stage_group32, cfb.stage_group_r2,
            cpr.round_kernel, cpr.fold_kernel, ck.butterfly_high,
            ck.butterfly_low, tc.mul_compact_tiles)
+# ptxas's entry names of the GF(2^128) sumcheck kernels: a template's name
+# with the start of its mangled arguments (ILb0E: the fold's <false>, row
+# folds; ILb1E: <true>, in-word folds)
+SUMCHECK_KERNELS = ("sumcheck_round_kernel", "sumcheck_fold_kernelILb0E",
+                    "sumcheck_fold_kernelILb1E")
 
 # The card's peaks for bound_ms (data-sheet estimates at 1.98 GHz): integer
 # logic on the int32 pipe (132 SMs x 64 lanes), the rate of the GF(2)
@@ -275,6 +280,18 @@ def bound(ops: float, nbytes: float, rate: float = INT_OPS_PER_S) -> dict:
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None}
+
+
+def sumcheck_bounds(comp: int, batches: int) -> dict:
+    """Bounds of the GF(2^128) sumcheck's first round and fold over
+    ``batches`` live batches: a round multiplies (C - 1) * (C + 1) times a
+    row pair and reads C rows of each half; a fold multiplies C times a row
+    pair and writes C rows."""
+    return {
+        "round": bound(batches // 2 * (comp - 1) * (comp + 1) * MUL128_OPS,
+                       comp * batches * W * 4),
+        "fold": bound(comp * batches // 2 * MUL128_OPS,
+                      comp * batches * W * 4 + comp * batches // 2 * W * 4)}
 
 
 def say(phase: str, msg: str) -> None:
@@ -364,8 +381,9 @@ def phase_build() -> None:
              if "registers" in ln or "spill" in ln or "Compiling" in ln]
     say("build", f"nvcc {_build.build_info['seconds']:.1f} s "
         f"(load {wall:.1f} s); ptxas: {' | '.join(usage)}")
-    say("build", "sumcheck_round_kernel: ptxas "
-        f"{_build.kernel_usage('sumcheck_round_kernel') or 'not reported'}")
+    for name in SUMCHECK_KERNELS:
+        say("build", f"{name}: ptxas "
+            f"{_build.kernel_usage(name) or 'not reported'}")
 
 
 def phase_mul_tiles(dev) -> dict:
@@ -761,6 +779,7 @@ def phase_sumcheck_timing(dev, words, challenges, worst,
              "fold_plain_ms": device_time(cr.fold_plain, x, challenges[0], b,
                                           warmup=1, reps=3)}
         t = {k: v * 1e3 for k, v in t.items()}
+        bounds = sumcheck_bounds(comp, b)
         runs = [timed_protocol(Sumcheck(sliced.clone(), comp, num_vars,
                                         data_is_transposed=True), challenges)
                 for _ in range(3)]
@@ -771,8 +790,12 @@ def phase_sumcheck_timing(dev, words, challenges, worst,
         say("sumcheck_timing", f"2^{num_vars}, C={comp}: round and fold "
             f"word-equal to plain on the timed input (max_abs_err 0); first "
             f"round {t['round_ms']:.3f} ms (plain {t['round_plain_ms']:.3f} "
-            f"ms), fold {t['fold_ms']:.3f} ms (plain "
-            f"{t['fold_plain_ms']:.3f} ms); whole protocol from device "
+            f"ms; bound {bounds['round']['bound_ms']:.3f} ms, "
+            f"{bounds['round']['bound_ms'] / t['round_ms']:.1%} of it), fold "
+            f"{t['fold_ms']:.3f} ms (plain {t['fold_plain_ms']:.3f} ms; "
+            f"bound {bounds['fold']['bound_ms']:.3f} ms, "
+            f"{bounds['fold']['bound_ms'] / t['fold_ms']:.1%} of it); "
+            f"whole protocol from device "
             f"input {t['protocol_ms']:.3f} ms host clock, of it the in-word "
             f"rounds {t['in_word_ms']:.3f} ms (medians of 3)")
         out[comp] = t
@@ -1525,15 +1548,7 @@ def main() -> int:
     n24, batches = 1 << 24, (1 << 24) // 32
     mul_rows = 1 << 18
     mul.update(bound(mul_rows * MUL128_OPS, 3 * mul_rows * W * 4))
-    # a round multiplies (C - 1) * (C + 1) times a row pair and reads C
-    # rows of each half; a fold multiplies C times a row pair and writes C
-    # rows
-    sc_bounds = {c: {
-        "round": bound(batches // 2 * (c - 1) * (c + 1) * MUL128_OPS,
-                       c * batches * W * 4),
-        "fold": bound(c * batches // 2 * MUL128_OPS,
-                      c * batches * W * 4 + c * batches // 2 * W * 4)}
-        for c in COMPS}
+    sc_bounds = {c: sumcheck_bounds(c, batches) for c in COMPS}
     lane_rows = 1 << 17
     lanes_bound = bound(lane_rows * 4 * TRANSPOSE32_OPS,
                         2 * lane_rows * W * 4)

@@ -36,7 +36,7 @@ from binius_ntt_tpu_torch.sumcheck import cuda_prime_round as cpr
 from binius_ntt_tpu_torch.sumcheck import cuda_round as cr
 from binius_ntt_tpu_torch.sumcheck import verifier as V
 from binius_ntt_tpu_torch.sumcheck.prime_field import check_transcript
-from binius_ntt_tpu_torch.utils.bits import to_numpy, to_torch
+from binius_ntt_tpu_torch.utils.bits import lsr, to_numpy, to_torch
 from binius_ntt_tpu_torch.utils.mt19937 import mt19937_stream
 
 pytestmark = pytest.mark.cuda
@@ -212,6 +212,44 @@ def test_round_kernel_grid_stride(dev, comp):
     got = cr.round_kernel(x, b - 2, comp + 1)
     torch.cuda.synchronize()
     assert torch.equal(got, cr.round_plain(x, b - 2, comp + 1))
+
+
+@pytest.mark.parametrize("comp", [1, 2, cr.MAX_COMPOSITION])
+def test_fold_kernel_with_idle_threads(dev, comp):
+    """rows = 70: 35 row pairs a column, so the fold's 64-thread blocks run
+    with idle threads, which must write nothing."""
+    x = _rand(50 + comp, (comp, 128, 128), dev)
+    got = cr.fold_kernel(x.clone(), CHALLENGE, 70)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cr.fold_plain(x.clone(), CHALLENGE, 70))
+
+
+@pytest.mark.parametrize("cut", [0, 2])
+@pytest.mark.parametrize("comp", [1, 4])
+def test_fold_kernel_with_more_blocks_than_the_card_holds(dev, comp, cut):
+    """2^22 evaluations: 2^16 row pairs a column, thousands of blocks more
+    than the card runs at once (and at b - 2 rows a last block part idle)."""
+    b = (1 << 22) // 32
+    x = _rand(60 + comp, (comp, b, 128), dev)
+    got = cr.fold_kernel(x.clone(), CHALLENGE, b - cut)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cr.fold_plain(x.clone(), CHALLENGE, b - cut))
+
+
+@pytest.mark.parametrize("rows,lanes", [(128, 32), (70, 32), (1, 32),
+                                        (1, 2)])
+def test_fold_kernel_at_challenges_zero_and_one(dev, rows, lanes):
+    """w = 0 leaves every row as it is; w = 1 makes lo the upper operand
+    (in-word: lo >> lanes/2, on every lane)."""
+    x = _rand(70 + rows + lanes, (3, 128, 128), dev)
+    n = max(rows // 2, 1)
+    up = lsr(x[:, :1], lanes // 2) if rows == 1 else x[:, n:rows]
+    assert torch.equal(cr.fold_kernel(x.clone(), [0, 0, 0, 0], rows, lanes),
+                       x)
+    got = cr.fold_kernel(x.clone(), [1, 0, 0, 0], rows, lanes)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, :n], up)
+    assert torch.equal(got[:, n:], x[:, n:])
 
 
 def test_sumcheck_kernels_refuse_what_they_do_not_take(dev):

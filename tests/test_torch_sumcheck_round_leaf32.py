@@ -28,8 +28,10 @@ from binius_ntt_tpu_torch.fields import bitsliced
 from binius_ntt_tpu_torch.sumcheck import cuda_round as cr
 from binius_ntt_tpu_torch.utils.bits import lsr, to_numpy, to_torch
 
-KERNEL = (Path(cr.__file__).resolve().parents[1] / "csrc"
-          / "sumcheck_round.cu")
+CSRC = Path(cr.__file__).resolve().parents[1] / "csrc"
+KERNEL = CSRC / "sumcheck_round.cu"
+# the in-place product, with GROUPED, shared by the round and the fold
+LEAVES = CSRC / "tower_leaf32.cuh"
 # the leaves by a's (and b's) chunk subsets, as mul_body<6> takes them
 LEAF_ORDER = (0b0001, 0b0010, 0b0011, 0b0100, 0b1000, 0b1100, 0b0101,
               0b1010, 0b1111)
@@ -105,20 +107,29 @@ def grouped_order() -> list[int]:
     return [s for s0, s1 in GROUPS for s in (s0, s1, s0 ^ s1)]
 
 
-def in_place_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """csrc/sumcheck_round.cu's mul_in_place in torch over (..., 128)
+def in_place_multiply(a: torch.Tensor, b) -> torch.Tensor:
+    """csrc/tower_leaf32.cuh's mul_in_place in torch over (..., 128)
     planes: per group, lo = L(s0) ^ L(s1) and hi = L(s0 ^ s1) ^ L(s0) ^
     L(s1) ^ alpha L(s1) in registers; zm to the scratch t, z0 over chunks 0
-    and 1 of a, then z2 and the combine of mul_body<7> over all four."""
+    and 1 of a, then z2 and the combine of mul_body<7> over all four.  b is
+    the second operand's planes, whose leaves are gathered (the round), or
+    a function of a chunk subset giving that leaf's 32 planes (the fold's
+    table)."""
     ca = a.reshape(a.shape[:-1] + (4, 32)).clone()
-    cb = b.reshape(b.shape[:-1] + (4, 32))
+    if callable(b):
+        leaf_b = b
+    else:
+        cb = b.reshape(b.shape[:-1] + (4, 32))
+
+        def leaf_b(s):
+            return sum_chunks(cb, s)
+
     def alpha(x):
         return bitsliced.multiply_alpha(x, 5)
 
     t = None
     for g, (s0, s1) in enumerate(GROUPS):
-        p0, p1, pm = (bitsliced.multiply(sum_chunks(ca, s),
-                                         sum_chunks(cb, s), 5)
+        p0, p1, pm = (bitsliced.multiply(sum_chunks(ca, s), leaf_b(s), 5)
                       for s in (s0, s1, s0 ^ s1))
         lo, hi = p0 ^ p1, pm ^ p0 ^ p1 ^ alpha(p1)
         if g == 0:
@@ -224,10 +235,10 @@ def test_leaf_table_covers_the_karatsuba():
 
 
 def test_kernel_leaves_are_the_table_s_grouped():
-    """The kernel's GROUPED, in its source, is the table's nine leaves,
-    three to each level-6 product of mul_body<7>: zm = (a_lo ^ a_hi) *
-    (b_lo ^ b_hi), z0 = a_lo * b_lo, z2 = a_hi * b_hi."""
-    text = KERNEL.read_text()
+    """The kernels' GROUPED, in the shared header, is the table's nine
+    leaves, three to each level-6 product of mul_body<7>: zm = (a_lo ^
+    a_hi) * (b_lo ^ b_hi), z0 = a_lo * b_lo, z2 = a_hi * b_hi."""
+    text = LEAVES.read_text()
     body = re.search(r"GROUPED\[N_LEAF\] = \{([^}]*)\}", text).group(1)
     grouped = [int(w, 2) for w in re.findall(r"0b([01]+)", body)]
     assert grouped == grouped_order()
