@@ -35,7 +35,7 @@
 //     global memory for the last XOR.  224 registers, no spills; four
 //     64-thread blocks (8 warps) an SM.  Four warps an SM, by padding or
 //     by keeping lo in shared memory (1.25 KB a thread), ran 20-30% slower
-//     (PERF.md, PR 11).
+//     (PERF.md, section 6).
 //   * w is the same for every thread, and each of its planes is all ones
 //     or all zeros, so its leaf operands are a table: word i of leaf l is
 //     all ones where the XOR of the challenge words in chunk subset
