@@ -101,7 +101,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     _build.library()
-    usage = {kind: own_kernel_usage()(name, _build.build_info["log"])
+    kernel_usage = own_kernel_usage()
+    usage = {kind: kernel_usage(name, _build.build_info["log"])
              for kind, name in KERNELS.items()}
     for kind, name in KERNELS.items():
         print(f"[ptxas] {name}: {usage[kind]}", flush=True)
