@@ -44,7 +44,7 @@ _SIGNATURES = {
     "bntt_prime_round": (_P, _P, _L, _L, _P),
     "bntt_prime_fold": (_P, _L, _L, _U, _U, _U, _U, _P),
     "bntt_butterfly_high": (_P, _P, _L, _I, _P),
-    "bntt_butterfly_low": (_P, _P, _P, _L, _I, _P),
+    "bntt_butterfly_low": (_P, _P, _P, _L, _I, _I, _P),
     "bntt_mul_compact": (_P, _P, _P, _L, _I, _P),
 }
 

@@ -22,7 +22,8 @@ tables are the reference's: for s >= 5 the doubling table of compact
 128-bit twiddles in indicator order (one per block), for s < 5 the
 doubling table of each row's batch part and the stage's lane part as
 bit-planes.  The twiddles stay compact (4 words a value); the kernels
-expand them.
+expand them.  Each low stage's route (``cuda_kernels.low_subfield``: its
+twiddles lie in GF(2^32)) is decided once, when the tables are made.
 
 Not ported: ``use_pallas`` (the tensor's device picks kernel or plain
 version) and the host-side capacity gate.
@@ -40,8 +41,8 @@ from . import cuda_fused, cuda_kernels
 from .additive import precompute_subspace_evals
 from .nttdata import DataOrder, NTTData
 
-__all__ = ["AdditiveNTT128", "per_stage_tables", "per_stage_steps",
-           "apply_per_stage"]
+__all__ = ["AdditiveNTT128", "per_stage_tables", "low_routes",
+           "per_stage_steps", "apply_per_stage"]
 
 HEIGHT = 7
 W = 1 << HEIGHT            # 128 bit-planes
@@ -92,10 +93,23 @@ def per_stage_tables(rows, log_h: int, log_rate: int, device=None):
     return high, low_batch, low_lanes
 
 
-def per_stage_steps(high, low_batch, low_lanes, *, nb: int, log_rate: int):
+def low_routes(low_batch, low_lanes) -> dict:
+    """Each low stage's route flag, cuda_kernels.low_subfield of its tables,
+    keyed by stage (reads the tables: a sync on the card)."""
+    return {s: cuda_kernels.low_subfield(low_batch[s], low_lanes[s])
+            for s in low_batch}
+
+
+def per_stage_steps(high, low_batch, low_lanes, *, nb: int, log_rate: int,
+                    chunk32: dict | None = None):
     """The per-stage path's launches in order, for nb batches a coset:
     (stage, kernel, plain version, arguments after the working buffer),
-    high stages log_h-1 .. 5, then the low stages 4 .. 0."""
+    high stages log_h-1 .. 5, then the low stages 4 .. 0.  ``chunk32``:
+    the low stages' route flags by stage (:func:`low_routes`, computed here
+    from the tables when not given); a low stage's arguments end with its
+    flag."""
+    if chunk32 is None:
+        chunk32 = low_routes(low_batch, low_lanes)
     log_h = nb.bit_length() + 4
     cosets = 1 << log_rate
     for s in range(log_h - 1, 4, -1):
@@ -111,21 +125,23 @@ def per_stage_steps(high, low_batch, low_lanes, *, nb: int, log_rate: int):
         if low_batch[s].shape[0] != cosets * nb:
             raise AssertionError("twiddle table layout mismatch")
         yield (s, cuda_kernels.butterfly_low, cuda_kernels.butterfly_low_plain,
-               (low_batch[s], low_lanes[s], s))
+               (low_batch[s], low_lanes[s], s, chunk32[s]))
 
 
-def apply_per_stage(data, high, low_batch, low_lanes, *, log_rate: int):
+def apply_per_stage(data, high, low_batch, low_lanes, *, log_rate: int,
+                    chunk32: dict | None = None):
     """Per-stage transform (the reference's ``_apply128``): data (nb, 128)
     bit-sliced -> (cosets * nb, 128).
 
     The input is copied once per coset into a fresh working buffer, which
     every stage updates in place; ``data`` itself is not modified.  Each
     stage launches its kernel on a CUDA tensor and runs the plain version on
-    the CPU.
+    the CPU.  ``chunk32`` as in :func:`per_stage_steps`.
     """
     x = data.repeat(1 << log_rate, 1)
     for _, kernel, _, args in per_stage_steps(
-            high, low_batch, low_lanes, nb=data.shape[0], log_rate=log_rate):
+            high, low_batch, low_lanes, nb=data.shape[0], log_rate=log_rate,
+            chunk32=chunk32):
         kernel(x, *args)
     return x
 
@@ -162,6 +178,7 @@ class AdditiveNTT128(torch.nn.Module):
         device = default_device(device)
         rows = precompute_subspace_evals(log_h, log_rate, HEIGHT)
         self._groups = []
+        self.low_chunk32 = {}      # the per-stage path's low-stage routes
         if self.use_fused:
             tables = cuda_fused.build_tables(rows, log_h, log_rate, device)
             for g, (t0, k, low, mtile, minst, lanes, zero,
@@ -178,6 +195,8 @@ class AdditiveNTT128(torch.nn.Module):
         for s in low_batch:
             self.register_buffer(f"low_batch{s}", low_batch[s])
             self.register_buffer(f"low_lanes{s}", low_lanes[s])
+        # decided here so that no transform reads a table on the device
+        self.low_chunk32 = low_routes(low_batch, low_lanes)
 
     @property
     def device(self) -> torch.device:
@@ -214,7 +233,8 @@ class AdditiveNTT128(torch.nn.Module):
                              "path")
         return per_stage_steps(*self.stage_tables,
                                nb=(1 << self.log_h) // 32,
-                               log_rate=self.log_rate)
+                               log_rate=self.log_rate,
+                               chunk32=self.low_chunk32)
 
     def apply_sliced(self, data: torch.Tensor) -> torch.Tensor:
         """data: (2^log_h/32, 128) int32 bit-sliced IN_ORDER input on the
@@ -231,7 +251,8 @@ class AdditiveNTT128(torch.nn.Module):
             return cuda_fused.apply_fused(data.contiguous(), self.tables,
                                           log_rate=self.log_rate)
         return apply_per_stage(data, *self.stage_tables,
-                               log_rate=self.log_rate)
+                               log_rate=self.log_rate,
+                               chunk32=self.low_chunk32)
 
     def apply(self, x_words):
         """Compact interface: (2^log_h * 4,) words, little-endian

@@ -10,7 +10,11 @@ Port of binius_ntt_tpu/ntt/pallas_kernels.py:
     one twiddle per block; a low stage s < 5 pairs lanes inside each row,
     with the twiddle of a lane split into a batch part (per row) and a lane
     part (per stage).  Twiddles arrive compact, 4 words a value, and the
-    kernels expand them into bit-planes themselves.
+    kernels expand them into bit-planes themselves.  ``butterfly_low`` has
+    two routes: CHUNK32 when the stage's twiddles lie in GF(2^32)
+    (:func:`low_subfield`, decided once by the caller from the tables),
+    the u lanes of two rows packed into four GF(2^32) chunk products, else
+    one GF(2^128) product a row.
   * ``mul_tiles`` (csrc/mul_tiles.cu): the per-thread straight-line circuit
     of csrc/tower_mul.cuh, the device multiply the other GF(2^128) kernels
     inline too, as an entry point of its own.
@@ -31,12 +35,13 @@ import torch
 
 from .. import _build
 from ..fields import bitsliced
+from .cuda_fused import SUB_PLANES
 from ..fields.tower_simd import MASKS
 from ..utils.bits import lsr, u32
 
 __all__ = ["HEIGHT", "W", "PLAIN_CHUNK", "butterfly_high",
            "butterfly_high_plain", "butterfly_low", "butterfly_low_plain",
-           "mul_tiles", "mul_tiles_plain"]
+           "low_subfield", "mul_tiles", "mul_tiles_plain"]
 
 HEIGHT = 7
 W = 1 << HEIGHT
@@ -101,6 +106,15 @@ def _low_geometry(x: torch.Tensor, a4: torch.Tensor,
     _check_words("lane_planes", lane_planes, (W,), x.device)
 
 
+def low_subfield(a4: torch.Tensor, lane_planes: torch.Tensor) -> bool:
+    """True when every twiddle of a low stage lies in GF(2^32): words 1..3
+    of the batch parts a4 and lane planes 32..127 are zero, so that
+    :func:`butterfly_low` may take its CHUNK32 route.  Holds for every
+    domain of at most 2^32 points.  Reads the tables (a sync on a CUDA
+    tensor): decide it once, at set-up."""
+    return not (bool(a4[:, 1:].any()) or bool(lane_planes[SUB_PLANES:].any()))
+
+
 def butterfly_high_plain(x: torch.Tensor, w4: torch.Tensor) -> torch.Tensor:
     """Plain torch version of :func:`butterfly_high`, on any device:
     u' = u ^ w v, v' = u' ^ v in every block, in place; returns x."""
@@ -120,11 +134,13 @@ def butterfly_high_plain(x: torch.Tensor, w4: torch.Tensor) -> torch.Tensor:
 
 
 def butterfly_low_plain(x: torch.Tensor, a4: torch.Tensor,
-                        lane_planes: torch.Tensor,
-                        stage: int) -> torch.Tensor:
+                        lane_planes: torch.Tensor, stage: int,
+                        chunk32: bool = False) -> torch.Tensor:
     """Plain torch version of :func:`butterfly_low`, on any device:
     un = x ^ w (x >> 2^s), x' = (un & umask) | ((x ^ (un << 2^s)) & vmask)
-    with w = expand(a4) ^ lane_planes, in place; returns x."""
+    with w = expand(a4) ^ lane_planes, in place; returns x.  It has one
+    route, the general GF(2^128) multiply, whatever ``chunk32`` (the
+    kernel's route) says."""
     _low_geometry(x, a4, lane_planes, stage)
     shift = 1 << stage
     umask = MASKS[stage]                     # the even lanes
@@ -163,12 +179,15 @@ butterfly_high.launches = 0
 
 
 def butterfly_low(x: torch.Tensor, a4: torch.Tensor, lane_planes: torch.Tensor,
-                  stage: int) -> torch.Tensor:
+                  stage: int, chunk32: bool = False) -> torch.Tensor:
     """One low (in-word) stage 0..4, IN PLACE: x (R, 128) int32 rows, a4
     (R, 4) int32 the batch part of each row's twiddle, lane_planes (128,)
     int32 the stage's lane part as bit-planes.  Returns x.  A CPU tensor
     runs :func:`butterfly_low_plain`; a CUDA tensor launches the kernel of
-    csrc/butterfly.cu or raises."""
+    csrc/butterfly.cu or raises: its CHUNK32 route if ``chunk32`` (the
+    tables' :func:`low_subfield`, which the caller vouches for), else the
+    general one.  ``launches`` counts every launch, ``route_launches``
+    each route's."""
     if x.device.type == "cpu":
         return butterfly_low_plain(x, a4, lane_planes, stage)
     if x.device.type != "cuda":
@@ -179,13 +198,16 @@ def butterfly_low(x: torch.Tensor, a4: torch.Tensor, lane_planes: torch.Tensor,
     with torch.cuda.device(x.device):
         rc = lib.bntt_butterfly_low(x.data_ptr(), a4.data_ptr(),
                                     lane_planes.data_ptr(), x.shape[0], stage,
+                                    int(chunk32),
                                     torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "butterfly_low")
     butterfly_low.launches += 1
+    butterfly_low.route_launches["chunk32" if chunk32 else "general"] += 1
     return x
 
 
 butterfly_low.launches = 0
+butterfly_low.route_launches = {"chunk32": 0, "general": 0}
 
 
 def mul_tiles_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

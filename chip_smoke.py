@@ -9,8 +9,9 @@ run with a non-zero exit and no result line:
 
   1. device   — a CUDA device of capability (9, 0), its name and power limit;
   2. build    — the kernels of binius_ntt_tpu_torch/csrc built by nvcc,
-     then sumcheck_round_kernel's stack frame, spills and registers as
-     ptxas reports them, on a line of their own;
+     then the stack frame, spills and registers of the sumcheck kernels
+     and of every butterfly_low_kernel instantiation as ptxas reports
+     them, a line each;
   3. mul_tiles   — kernel vs its plain torch version on the card, 2^18 rows;
   4. stage_group — kernel vs plain, group by group, at log_h 16 (rates 0
      and 2, production plan) and at (9, 1) and (12, 0) with a forced
@@ -91,18 +92,23 @@ run with a non-zero exit and no result line:
  19. butterfly_kernels — the per-stage GF(2^128) NTT's butterfly_high and
      butterfly_low vs their plain versions stage by stage, word-equal after
      every stage, at log_h 5 with rates 0..4 (the size only this path
-     takes) and at (12, 0), (12, 2) and (16, 2); each chained output held
-     to the golden MD5 where the table has one, else (log_h 5 at rates 1,
-     3, 4) to the scalar oracle (ntt/reference.py);
+     takes; one row at rate 0) and at (12, 0), (12, 2) and (16, 2); each
+     chained output held to the golden MD5 where the table has one, else
+     (log_h 5 at rates 1, 3, 4) to the scalar oracle (ntt/reference.py);
+     then butterfly_low on both routes at every stage on random rows (1,
+     2, 3 and 4096) and random tables, GF(2^32) ones for the CHUNK32 route
+     and ones with every plane set for the general route;
  20. per_stage_main — the sixth path: AdditiveNTT128(24, r,
      use_fused=False).apply on the mt19937 inputs of phase 5 for r = 0, 2,
      held to the golden MD5 digests, and AdditiveNTT128(5, r).apply with
      the default device and use_fused for r = 0..4, held to the digest or
      the scalar oracle; every launch counter reset just before each call
      and read just after (19 butterfly_high and 5 butterfly_low launches
-     at log_h 24, none of stage_group);
+     at log_h 24, none of stage_group), every low stage on the CHUNK32
+     route;
  21. per_stage_timing — at 2^24, input on the device, r = 0 and 2, CUDA
-     events: every stage of the per-stage chain alone, the whole chain
+     events: every stage of the per-stage chain alone (each low stage
+     printed with its route and its share of the bound), the whole chain
      (apply_sliced), the fused apply_sliced on the same input, and the top
      high stage and the top low stage each held word-equal to its plain
      version on its chain input and then timed beside it (the plain
@@ -195,6 +201,10 @@ COUNTED = (ck.mul_tiles, cf.stage_group, cr.round_kernel, cr.fold_kernel,
 # folds; ILb1E: <true>, in-word folds)
 SUMCHECK_KERNELS = ("sumcheck_round_kernel", "sumcheck_fold_kernelILb0E",
                     "sumcheck_fold_kernelILb1E")
+# and of butterfly_low_kernel<S, CHUNK32> (ILi4ELb1E: <4, true>), the
+# CHUNK32 route's five first
+BUTTERFLY_LOW_KERNELS = tuple(f"butterfly_low_kernelILi{s}ELb{c}E"
+                              for c in (1, 0) for s in range(4, -1, -1))
 
 # The card's peaks for bound_ms (data-sheet estimates at 1.98 GHz): integer
 # logic on the int32 pipe (132 SMs x 64 lanes), the rate of the GF(2)
@@ -335,6 +345,7 @@ def reset_counts() -> None:
     for wrapper in COUNTED:
         wrapper.launches = 0
     cf.stage_group.route_launches = {"chunk32": 0, "general": 0}
+    ck.butterfly_low.route_launches = {"chunk32": 0, "general": 0}
 
 
 def mul_ops(subfield: bool) -> int:
@@ -381,7 +392,7 @@ def phase_build() -> None:
              if "registers" in ln or "spill" in ln or "Compiling" in ln]
     say("build", f"nvcc {_build.build_info['seconds']:.1f} s "
         f"(load {wall:.1f} s); ptxas: {' | '.join(usage)}")
-    for name in SUMCHECK_KERNELS:
+    for name in SUMCHECK_KERNELS + BUTTERFLY_LOW_KERNELS:
         say("build", f"{name}: ptxas "
             f"{_build.kernel_usage(name) or 'not reported'}")
 
@@ -1321,9 +1332,58 @@ def phase_butterfly_kernels(dev, golden, sizes=(
         held = hold_ntt128_output(bitslice_untranspose(x).reshape(-1), words,
                                   log_h, log_rate, golden)
         say("butterfly_kernels", f"({log_h}, {log_rate}): {log_h - 5} high "
-            f"and 5 low stages word-equal to plain after every stage "
+            f"and 5 low stages ({x.shape[0]} rows; low routes "
+            f"{step_routes(ntt)}) word-equal to plain after every stage "
             f"(max_abs_err {max(worst.values())}, tolerance exact); chained "
             f"output matches the {held}")
+    worst["butterfly_low"] = max(worst["butterfly_low"],
+                                 check_low_routes(dev))
+    return worst
+
+
+def low_route(args) -> str:
+    """The butterfly_low route a low step's arguments ask for (its flag is
+    the last argument)."""
+    return "chunk32" if args[-1] else "general"
+
+
+def step_routes(ntt) -> list[str]:
+    """The route of each low stage of a per-stage transform, 4 .. 0."""
+    return [low_route(args) for _, kernel, _, args in ntt.stage_steps()
+            if kernel is ck.butterfly_low]
+
+
+def check_low_routes(dev, rows=(1, 2, 3, 4096)) -> int:
+    """butterfly_low vs plain at every stage on both routes, on random
+    rows and tables: the general one with every plane of a4 and the lane
+    planes random, CHUNK32 with random GF(2^32) twiddles (a4 word 0 and
+    lane planes 0..31); odd row counts leave a row without a partner."""
+    rng = np.random.default_rng(SEED + 19)
+    worst = 0
+    for n in rows:
+        for chunk32 in (True, False):
+            a4 = rng.integers(0, 1 << 32, (n, 4), dtype=np.uint32)
+            lanes = rng.integers(0, 1 << 32, W, dtype=np.uint32)
+            if chunk32:
+                a4[:, 1:] = 0
+                lanes[32:] = 0
+            a4, lanes = to_torch(a4, dev), to_torch(lanes, dev)
+            require(subfield_step((a4, lanes)) == chunk32,
+                    "random tables on the wrong side of the subfield test")
+            route = "chunk32" if chunk32 else "general"
+            for s in range(5):
+                x = to_torch(rng.integers(0, 1 << 32, (n, W),
+                                          dtype=np.uint32), dev)
+                want = ck.butterfly_low_plain(x.clone(), a4, lanes, s)
+                ck.butterfly_low(x, a4, lanes, s, chunk32)
+                torch.cuda.synchronize()
+                err = max_abs_err(x, want)
+                require(err == 0, f"butterfly_low ({route}) differs from "
+                        f"plain on {n} random rows at stage {s} ({err})")
+                worst = max(worst, err)
+    say("butterfly_kernels", f"butterfly_low on random tables, rows "
+        f"{list(rows)}, stages 4..0: both routes word-equal to plain "
+        f"(max_abs_err {worst})")
     return worst
 
 
@@ -1357,6 +1417,10 @@ def phase_per_stage_main(dev, golden, runs):
                 and others == 0, f"({lh}, {log_rate}): expected {lh - 5} "
                 f"butterfly_high and 5 butterfly_low launches and no other, "
                 f"got {counts} and {others} others")
+        routes = dict(ck.butterfly_low.route_launches)
+        require(routes == {"chunk32": 5, "general": 0}, f"({lh}, "
+                f"{log_rate}): every low stage must take the CHUNK32 route, "
+                f"got {routes}")
         for name in total:
             total[name] += counts[name]
         require(tuple(out.shape) == ((1 << (lh + log_rate)) * 4,),
@@ -1364,8 +1428,8 @@ def phase_per_stage_main(dev, golden, runs):
         held = hold_ntt128_output(out, words, lh, log_rate, golden)
         say("per_stage_main", f"AdditiveNTT128({lh}, {log_rate}"
             f"{', use_fused=False' if lh > 5 else ''}).apply: {held} "
-            f"matches; launches {counts}, stage_group 0; {sec:.3f} s host "
-            f"clock incl. upload and layout")
+            f"matches; launches {counts} (butterfly_low routes {routes}), "
+            f"stage_group 0; {sec:.3f} s host clock incl. upload and layout")
     say("per_stage_main", f"launches {total}")
     return total, big
 
@@ -1378,7 +1442,7 @@ def phase_per_stage_timing(dev, runs, big) -> dict:
         sliced = bitslice_transpose(to_torch(words, dev).reshape(-1, W))
         x = sliced.repeat(1 << log_rate, 1)
         steps = list(ntt.stage_steps())
-        stage_ms, held = [], {}
+        stage_ms, held, low = [], {}, []
         for s, kernel, plain, args in steps:
             name = kernel.__name__
             if name not in held:       # the top stage of each kernel
@@ -1408,12 +1472,15 @@ def phase_per_stage_timing(dev, runs, big) -> dict:
                 stage_ms.append(held[name]["ms"])
             else:
                 stage_ms.append(device_time(kernel, x.clone(), *args) * 1e3)
+            if kernel is ck.butterfly_low:
+                low.append({"stage": s, "ms": stage_ms[-1],
+                            "route": low_route(args)})
             kernel(x, *args)                    # advance the chain
         chain_ms = device_time(ntt.apply_sliced, sliced) * 1e3
         fused_ms = device_time(fused.apply_sliced, sliced) * 1e3
         torch.cuda.synchronize()
         out[log_rate] = {"chain_ms": chain_ms, "fused_ms": fused_ms,
-                         "stage_ms": stage_ms, **held}
+                         "stage_ms": stage_ms, "low_stages": low, **held}
         # the transform's bound, as the fused one counts it: the live
         # stages' multiplies, the input read and the output written
         live = live_steps(ntt)
@@ -1427,6 +1494,12 @@ def phase_per_stage_timing(dev, runs, big) -> dict:
             f"live stages {live}), fused apply_sliced {fused_ms:.3f} ms; "
             f"stages {steps[0][0]}..0 alone "
             f"{[round(t, 3) for t in stage_ms]} ms")
+        low_bound = held["butterfly_low"]["bound_ms"]
+        say("per_stage_timing", f"rate {log_rate} butterfly_low, every low "
+            f"stage alone: " + ", ".join(
+                f"s={t['stage']} {t['route']} {t['ms']:.3f} ms "
+                f"({100 * low_bound / t['ms']:.1f}% of its bound)"
+                for t in low) + f"; bound {low_bound:.3f} ms a stage")
         for name, t in held.items():
             say("per_stage_timing", f"rate {log_rate} {name} stage "
                 f"{t['stage']} word-equal to plain on its chain input "
@@ -1605,6 +1678,9 @@ def main() -> int:
                      f"such launches a transform; by_rate has rate 2",
             "by_rate": {r: {k: ps_timing[r][name][k] for k in (
                 "stage", "ms", "plain_ms", "bound_ms")} for r in (0, 2)},
+            **({"low_stages_by_rate": {r: ps_timing[r]["low_stages"]
+                                       for r in (0, 2)}}
+               if name == "butterfly_low" else {}),
             "chain_ms_by_rate": {r: ps_timing[r]["chain_ms"]
                                  for r in (0, 2)},
             "chain_bound_ms_by_rate": {

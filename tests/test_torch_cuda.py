@@ -521,6 +521,52 @@ def test_butterfly_high_on_random_rows(dev):
     assert torch.equal(x, want)
 
 
+def _low_tables(seed, rows, subfield, device):
+    """Random low-stage tables: a4 (rows, 4) and lane planes (128,); with
+    ``subfield`` only a4 word 0 and lane planes 0..31 are set (GF(2^32)
+    twiddles, the CHUNK32 route), else every plane is random."""
+    rng = np.random.default_rng(seed)
+    a4 = rng.integers(0, 1 << 32, (rows, 4), dtype=np.uint32)
+    lanes = rng.integers(0, 1 << 32, 128, dtype=np.uint32)
+    if subfield:
+        a4[:, 1:] = 0
+        lanes[32:] = 0
+    return to_torch(a4, device), to_torch(lanes, device)
+
+
+@pytest.mark.parametrize("chunk32", [True, False])
+@pytest.mark.parametrize("rows", [1, 2, 3, 6000])
+@pytest.mark.parametrize("stage", range(5))
+def test_butterfly_low_on_random_rows(dev, stage, rows, chunk32):
+    """Each route on random rows and tables: one row (no partner), one
+    pair, an odd count, and a grid of many blocks."""
+    a4, lanes = _low_tables(100 + stage, rows, chunk32, dev)
+    assert ck.low_subfield(a4, lanes) == chunk32
+    x = _rand(200 + rows + stage, (rows, 128), dev)
+    want = ck.butterfly_low_plain(x.clone(), a4, lanes, stage)
+    route = "chunk32" if chunk32 else "general"
+    before = ck.butterfly_low.route_launches[route]
+    assert ck.butterfly_low(x, a4, lanes, stage, chunk32) is x
+    torch.cuda.synchronize()
+    assert torch.equal(x, want)
+    assert ck.butterfly_low.route_launches[route] == before + 1
+
+
+@pytest.mark.parametrize("chunk32", [True, False])
+def test_butterfly_low_routes_on_real_tables(dev, chunk32):
+    """Both routes on the tables of a real transform, random rows."""
+    ntt = AdditiveNTT128(12, 1, use_fused=False, device=dev)
+    assert ntt.low_chunk32 == {s: True for s in range(5)}
+    _, low_batch, low_lanes = ntt.stage_tables
+    for s in range(5):
+        x = _rand(300 + s, (low_batch[s].shape[0], 128), dev)
+        want = ck.butterfly_low_plain(x.clone(), low_batch[s], low_lanes[s],
+                                      s)
+        ck.butterfly_low(x, low_batch[s], low_lanes[s], s, chunk32)
+        torch.cuda.synchronize()
+        assert torch.equal(x, want)
+
+
 @pytest.mark.parametrize("log_h,log_rate", [
     (5, 0), (5, 1), (5, 2), (5, 3), (5, 4), (12, 2)])
 def test_per_stage_path_on_card(dev, log_h, log_rate):

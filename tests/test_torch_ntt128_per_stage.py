@@ -198,7 +198,8 @@ def test_stage_steps_are_the_path_apply_sliced_takes(log_h, log_rate):
         + [(s, "butterfly_low") for s in range(4, -1, -1)])
     for s, kernel, plain, args in steps:
         assert plain.__name__ == kernel.__name__ + "_plain"
-        want = (high[s],) if s >= 5 else (low_batch[s], low_lanes[s], s)
+        want = ((high[s],) if s >= 5 else
+                (low_batch[s], low_lanes[s], s, ntt.low_chunk32[s]))
         assert len(args) == len(want) and all(
             a is b for a, b in zip(args, want))
     rng = np.random.default_rng(log_h)

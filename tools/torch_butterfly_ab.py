@@ -1,0 +1,147 @@
+#!/usr/bin/env python3
+"""Check and time the per-stage GF(2^128) NTT's butterfly_low on one GPU.
+
+    python3 tools/torch_butterfly_ab.py
+
+Run from the root of a checkout: it builds and times that checkout's
+binius_ntt_tpu_torch, so two checkouts run in turns (parent, change,
+change, parent) compare two versions on one card.  It holds
+``butterfly_low`` word for word to ``butterfly_low_plain`` at every stage
+of AdditiveNTT128(12, 2, use_fused=False) on numpy-seeded random words,
+then, at 2^24 for rates 0 and 2, on the chain's own inputs: the same
+random input through the transform's high stages, then each low stage
+4 .. 0 held to the plain version and timed alone with CUDA events (median
+of 7), each on the input the chain gives it.  Beside them it times the
+whole per-stage chain (apply_sliced) and the top high stage, which this
+tool's kernel does not touch.  Prints ptxas's figures for every
+butterfly_low_kernel instantiation (read with this script's own
+``_build.kernel_usage``, so a parent checkout reports them too), the route
+each low stage took, and one JSON object with the card's name and power
+limit.  Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.getcwd())
+
+from binius_ntt_tpu_torch import AdditiveNTT128, _build  # noqa: E402
+from binius_ntt_tpu_torch.ntt import cuda_kernels as ck  # noqa: E402
+from binius_ntt_tpu_torch.utils.benchlib import device_time  # noqa: E402
+from binius_ntt_tpu_torch.utils.bits import to_torch  # noqa: E402
+
+SEED = 0xB0F1
+LOG_H = 24
+W = 128
+
+
+def own_kernel_usage():
+    """kernel_usage from the _build.py beside this script."""
+    path = Path(__file__).resolve().parents[1] / "binius_ntt_tpu_torch"
+    spec = importlib.util.spec_from_file_location("own_build",
+                                                  path / "_build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.kernel_usage
+
+
+def low_entries(log: str) -> list[str]:
+    """The mangled names of the butterfly_low_kernel instantiations that
+    ptxas compiled, in the log's order."""
+    return list(dict.fromkeys(re.findall(
+        r"Compiling entry function '(\w*butterfly_low_kernel\w*)'", log)))
+
+
+def route(args) -> str:
+    """The route a low step's arguments ask for (a checkout before the
+    route flag has no flag: its one route is the general one)."""
+    flag = args[-1] if isinstance(args[-1], bool) else False
+    return "chunk32" if flag else "general"
+
+
+def sliced_words(log_h: int, dev, rng) -> torch.Tensor:
+    return to_torch(rng.integers(0, 1 << 32, ((1 << log_h) // 32, W),
+                                 dtype=np.uint32), dev)
+
+
+def check_small(dev, rng) -> int:
+    """butterfly_low == butterfly_low_plain at every stage of (12, 2)."""
+    ntt = AdditiveNTT128(12, 2, use_fused=False, device=dev)
+    x = sliced_words(12, dev, rng).repeat(4, 1)
+    held = 0
+    for s, kernel, plain, args in ntt.stage_steps():
+        if kernel is not ck.butterfly_low:
+            kernel(x, *args)
+            continue
+        want = plain(x.clone(), *args)
+        kernel(x, *args)
+        if not torch.equal(x, want):
+            raise SystemExit(f"butterfly_low differs from plain at stage "
+                             f"{s} of (12, 2)")
+        held += 1
+    return held
+
+
+def run(log_rate: int, dev, rng) -> dict:
+    ntt = AdditiveNTT128(LOG_H, log_rate, use_fused=False, device=dev)
+    data = sliced_words(LOG_H, dev, rng)
+    x = data.repeat(1 << log_rate, 1)
+    out = {"low": {}}
+    for s, kernel, plain, args in ntt.stage_steps():
+        if kernel is ck.butterfly_low:
+            want = plain(x.clone(), *args)
+            got = kernel(x.clone(), *args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise SystemExit(f"rate {log_rate}: butterfly_low differs "
+                                 f"from plain at stage {s} of 2^{LOG_H}")
+            del got, want
+            out["low"][s] = {
+                "route": route(args),
+                "ms": device_time(kernel, x.clone(), *args) * 1e3}
+        elif s == LOG_H - 1:
+            out["high_top_ms"] = device_time(kernel, x.clone(),
+                                             *args) * 1e3
+        kernel(x, *args)                        # advance the chain
+    out["low_sum_ms"] = sum(t["ms"] for t in out["low"].values())
+    out["chain_ms"] = device_time(ntt.apply_sliced, data) * 1e3
+    torch.cuda.synchronize()
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    _build.library()
+    kernel_usage = own_kernel_usage()
+    log = _build.build_info["log"]
+    usage = {name: kernel_usage(name, log) for name in low_entries(log)}
+    for name, line in usage.items():
+        print(f"[ptxas] {name}: {line or 'not reported'}", flush=True)
+    out = {"checkout": os.getcwd(), "card": smi, "ptxas": usage}
+    rng = np.random.default_rng(SEED)
+    out["held_small_stages"] = check_small(dev, rng)
+    for log_rate in (0, 2):
+        out[f"r{log_rate}"] = run(log_rate, dev, rng)
+        print(f"[time] rate {log_rate}: {out[f'r{log_rate}']}", flush=True)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
