@@ -43,7 +43,7 @@ _SIGNATURES = {
     "bntt_stage_group_r2": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "bntt_prime_round": (_P, _P, _L, _L, _P),
     "bntt_prime_fold": (_P, _L, _L, _U, _U, _U, _U, _P),
-    "bntt_butterfly_high": (_P, _P, _L, _I, _P),
+    "bntt_butterfly_high": (_P, _P, _L, _I, _I, _P),
     "bntt_butterfly_low": (_P, _P, _P, _L, _I, _I, _P),
     "bntt_mul_compact": (_P, _P, _P, _L, _I, _P),
 }

@@ -22,8 +22,9 @@ tables are the reference's: for s >= 5 the doubling table of compact
 128-bit twiddles in indicator order (one per block), for s < 5 the
 doubling table of each row's batch part and the stage's lane part as
 bit-planes.  The twiddles stay compact (4 words a value); the kernels
-expand them.  Each low stage's route (``cuda_kernels.low_subfield``: its
-twiddles lie in GF(2^32)) is decided once, when the tables are made.
+expand them.  Each stage's route (``cuda_kernels.high_subfield`` and
+``low_subfield``: its twiddles lie in GF(2^32)) is decided once, when the
+tables are made.
 
 Not ported: ``use_pallas`` (the tensor's device picks kernel or plain
 version) and the host-side capacity gate.
@@ -41,7 +42,7 @@ from . import cuda_fused, cuda_kernels
 from .additive import precompute_subspace_evals
 from .nttdata import DataOrder, NTTData
 
-__all__ = ["AdditiveNTT128", "per_stage_tables", "low_routes",
+__all__ = ["AdditiveNTT128", "per_stage_tables", "routes",
            "per_stage_steps", "apply_per_stage"]
 
 HEIGHT = 7
@@ -93,11 +94,14 @@ def per_stage_tables(rows, log_h: int, log_rate: int, device=None):
     return high, low_batch, low_lanes
 
 
-def low_routes(low_batch, low_lanes) -> dict:
-    """Each low stage's route flag, cuda_kernels.low_subfield of its tables,
-    keyed by stage (reads the tables: a sync on the card)."""
-    return {s: cuda_kernels.low_subfield(low_batch[s], low_lanes[s])
-            for s in low_batch}
+def routes(high, low_batch, low_lanes) -> dict:
+    """Each stage's route flag, keyed by stage: cuda_kernels.high_subfield
+    of a high stage's table, low_subfield of a low stage's (reads the
+    tables: a sync on the card)."""
+    flags = {s: cuda_kernels.high_subfield(w4) for s, w4 in high.items()}
+    flags.update({s: cuda_kernels.low_subfield(low_batch[s], low_lanes[s])
+                  for s in low_batch})
+    return flags
 
 
 def per_stage_steps(high, low_batch, low_lanes, *, nb: int, log_rate: int,
@@ -105,11 +109,11 @@ def per_stage_steps(high, low_batch, low_lanes, *, nb: int, log_rate: int,
     """The per-stage path's launches in order, for nb batches a coset:
     (stage, kernel, plain version, arguments after the working buffer),
     high stages log_h-1 .. 5, then the low stages 4 .. 0.  ``chunk32``:
-    the low stages' route flags by stage (:func:`low_routes`, computed here
-    from the tables when not given); a low stage's arguments end with its
+    the stages' route flags by stage (:func:`routes`, computed here from
+    the tables when not given); every stage's arguments end with its
     flag."""
     if chunk32 is None:
-        chunk32 = low_routes(low_batch, low_lanes)
+        chunk32 = routes(high, low_batch, low_lanes)
     log_h = nb.bit_length() + 4
     cosets = 1 << log_rate
     for s in range(log_h - 1, 4, -1):
@@ -119,7 +123,7 @@ def per_stage_steps(high, low_batch, low_lanes, *, nb: int, log_rate: int,
         if high[s].shape[0] != cosets * groups:
             raise AssertionError("twiddle table layout mismatch")
         yield (s, cuda_kernels.butterfly_high,
-               cuda_kernels.butterfly_high_plain, (high[s],))
+               cuda_kernels.butterfly_high_plain, (high[s], chunk32[s]))
     for s in range(min(log_h - 1, 4), -1, -1):
         # batch part of the indicator: coset << (log_h-1-s-lane_bits) | k
         if low_batch[s].shape[0] != cosets * nb:
@@ -178,7 +182,7 @@ class AdditiveNTT128(torch.nn.Module):
         device = default_device(device)
         rows = precompute_subspace_evals(log_h, log_rate, HEIGHT)
         self._groups = []
-        self.low_chunk32 = {}      # the per-stage path's low-stage routes
+        self.chunk32 = {}          # the per-stage path's routes by stage
         if self.use_fused:
             tables = cuda_fused.build_tables(rows, log_h, log_rate, device)
             for g, (t0, k, low, mtile, minst, lanes, zero,
@@ -196,7 +200,7 @@ class AdditiveNTT128(torch.nn.Module):
             self.register_buffer(f"low_batch{s}", low_batch[s])
             self.register_buffer(f"low_lanes{s}", low_lanes[s])
         # decided here so that no transform reads a table on the device
-        self.low_chunk32 = low_routes(low_batch, low_lanes)
+        self.chunk32 = routes(high, low_batch, low_lanes)
 
     @property
     def device(self) -> torch.device:
@@ -234,7 +238,7 @@ class AdditiveNTT128(torch.nn.Module):
         return per_stage_steps(*self.stage_tables,
                                nb=(1 << self.log_h) // 32,
                                log_rate=self.log_rate,
-                               chunk32=self.low_chunk32)
+                               chunk32=self.chunk32)
 
     def apply_sliced(self, data: torch.Tensor) -> torch.Tensor:
         """data: (2^log_h/32, 128) int32 bit-sliced IN_ORDER input on the
@@ -252,7 +256,7 @@ class AdditiveNTT128(torch.nn.Module):
                                           log_rate=self.log_rate)
         return apply_per_stage(data, *self.stage_tables,
                                log_rate=self.log_rate,
-                               chunk32=self.low_chunk32)
+                               chunk32=self.chunk32)
 
     def apply(self, x_words):
         """Compact interface: (2^log_h * 4,) words, little-endian

@@ -10,11 +10,12 @@ Port of binius_ntt_tpu/ntt/pallas_kernels.py:
     one twiddle per block; a low stage s < 5 pairs lanes inside each row,
     with the twiddle of a lane split into a batch part (per row) and a lane
     part (per stage).  Twiddles arrive compact, 4 words a value, and the
-    kernels expand them into bit-planes themselves.  ``butterfly_low`` has
-    two routes: CHUNK32 when the stage's twiddles lie in GF(2^32)
-    (:func:`low_subfield`, decided once by the caller from the tables),
-    the u lanes of two rows packed into four GF(2^32) chunk products, else
-    one GF(2^128) product a row.
+    kernels expand them into bit-planes themselves.  Each has two routes:
+    CHUNK32 when the stage's twiddles lie in GF(2^32) (:func:`high_subfield`,
+    :func:`low_subfield`, decided once by the caller from the tables), four
+    GF(2^32) chunk products a row pair (at a low stage the u lanes of two
+    rows packed into one word), else one GF(2^128) product a row pair or
+    row.
   * ``mul_tiles`` (csrc/mul_tiles.cu): the per-thread straight-line circuit
     of csrc/tower_mul.cuh, the device multiply the other GF(2^128) kernels
     inline too, as an entry point of its own.
@@ -41,7 +42,7 @@ from ..utils.bits import lsr, u32
 
 __all__ = ["HEIGHT", "W", "PLAIN_CHUNK", "butterfly_high",
            "butterfly_high_plain", "butterfly_low", "butterfly_low_plain",
-           "low_subfield", "mul_tiles", "mul_tiles_plain"]
+           "high_subfield", "low_subfield", "mul_tiles", "mul_tiles_plain"]
 
 HEIGHT = 7
 W = 1 << HEIGHT
@@ -106,6 +107,14 @@ def _low_geometry(x: torch.Tensor, a4: torch.Tensor,
     _check_words("lane_planes", lane_planes, (W,), x.device)
 
 
+def high_subfield(w4: torch.Tensor) -> bool:
+    """True when every twiddle of a high stage lies in GF(2^32): words 1..3
+    of w4 are zero, so that :func:`butterfly_high` may take its CHUNK32
+    route.  Holds for every domain of at most 2^32 points.  Reads the table
+    (a sync on a CUDA tensor): decide it once, at set-up."""
+    return not bool(w4[:, 1:].any())
+
+
 def low_subfield(a4: torch.Tensor, lane_planes: torch.Tensor) -> bool:
     """True when every twiddle of a low stage lies in GF(2^32): words 1..3
     of the batch parts a4 and lane planes 32..127 are zero, so that
@@ -115,9 +124,12 @@ def low_subfield(a4: torch.Tensor, lane_planes: torch.Tensor) -> bool:
     return not (bool(a4[:, 1:].any()) or bool(lane_planes[SUB_PLANES:].any()))
 
 
-def butterfly_high_plain(x: torch.Tensor, w4: torch.Tensor) -> torch.Tensor:
+def butterfly_high_plain(x: torch.Tensor, w4: torch.Tensor,
+                         chunk32: bool = False) -> torch.Tensor:
     """Plain torch version of :func:`butterfly_high`, on any device:
-    u' = u ^ w v, v' = u' ^ v in every block, in place; returns x."""
+    u' = u ^ w v, v' = u' ^ v in every block, in place; returns x.  It has
+    one route, the general GF(2^128) multiply, whatever ``chunk32`` (the
+    kernel's route) says."""
     log_db = _high_geometry(x, w4)
     db = 1 << log_db
     x4 = x.view(-1, 2, db, W)
@@ -153,12 +165,16 @@ def butterfly_low_plain(x: torch.Tensor, a4: torch.Tensor,
     return x
 
 
-def butterfly_high(x: torch.Tensor, w4: torch.Tensor) -> torch.Tensor:
+def butterfly_high(x: torch.Tensor, w4: torch.Tensor,
+                   chunk32: bool = False) -> torch.Tensor:
     """One high stage, IN PLACE: x (R, 128) int32 rows in blocks of 2 db
     (db = R / (2 G), a power of two), w4 (G, 4) int32, one compact
     twiddle per block.  Returns x.  A CPU tensor runs
     :func:`butterfly_high_plain`; a CUDA tensor launches the kernel of
-    csrc/butterfly.cu or raises."""
+    csrc/butterfly.cu or raises: its CHUNK32 route if ``chunk32`` (the
+    table's :func:`high_subfield`, which the caller vouches for), else the
+    general one.  ``launches`` counts every launch, ``route_launches``
+    each route's."""
     if x.device.type == "cpu":
         return butterfly_high_plain(x, w4)
     if x.device.type != "cuda":
@@ -168,14 +184,16 @@ def butterfly_high(x: torch.Tensor, w4: torch.Tensor) -> torch.Tensor:
     lib = _build.library()
     with torch.cuda.device(x.device):
         rc = lib.bntt_butterfly_high(x.data_ptr(), w4.data_ptr(), x.shape[0],
-                                     log_db,
+                                     log_db, int(chunk32),
                                      torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "butterfly_high")
     butterfly_high.launches += 1
+    butterfly_high.route_launches["chunk32" if chunk32 else "general"] += 1
     return x
 
 
 butterfly_high.launches = 0
+butterfly_high.route_launches = {"chunk32": 0, "general": 0}
 
 
 def butterfly_low(x: torch.Tensor, a4: torch.Tensor, lane_planes: torch.Tensor,

@@ -10,8 +10,8 @@ run with a non-zero exit and no result line:
   1. device   — a CUDA device of capability (9, 0), its name and power limit;
   2. build    — the kernels of binius_ntt_tpu_torch/csrc built by nvcc,
      then the stack frame, spills and registers of the sumcheck kernels
-     and of every butterfly_low_kernel instantiation as ptxas reports
-     them, a line each;
+     and of every butterfly_high_kernel and butterfly_low_kernel
+     instantiation as ptxas reports them, a line each;
   3. mul_tiles   — kernel vs its plain torch version on the card, 2^18 rows;
   4. stage_group — kernel vs plain, group by group, at log_h 16 (rates 0
      and 2, production plan) and at (9, 1) and (12, 0) with a forced
@@ -95,20 +95,23 @@ run with a non-zero exit and no result line:
      takes; one row at rate 0) and at (12, 0), (12, 2) and (16, 2); each
      chained output held to the golden MD5 where the table has one, else
      (log_h 5 at rates 1, 3, 4) to the scalar oracle (ntt/reference.py);
-     then butterfly_low on both routes at every stage on random rows (1,
-     2, 3 and 4096) and random tables, GF(2^32) ones for the CHUNK32 route
-     and ones with every plane set for the general route;
+     then butterfly_high on both routes on random rows and tables at
+     (rows, db) = (2, 1), (6, 1), (48, 8), (32, 16), (64, 32), (4096,
+     1024) and (65536, 2), and butterfly_low on both routes at every stage
+     on random rows (1, 2, 3 and 4096) and random tables, GF(2^32) ones
+     for the CHUNK32 routes and ones with every plane set for the general
+     routes;
  20. per_stage_main — the sixth path: AdditiveNTT128(24, r,
      use_fused=False).apply on the mt19937 inputs of phase 5 for r = 0, 2,
      held to the golden MD5 digests, and AdditiveNTT128(5, r).apply with
      the default device and use_fused for r = 0..4, held to the digest or
      the scalar oracle; every launch counter reset just before each call
      and read just after (19 butterfly_high and 5 butterfly_low launches
-     at log_h 24, none of stage_group), every low stage on the CHUNK32
+     at log_h 24, none of stage_group), every stage on the CHUNK32
      route;
  21. per_stage_timing — at 2^24, input on the device, r = 0 and 2, CUDA
-     events: every stage of the per-stage chain alone (each low stage
-     printed with its route and its share of the bound), the whole chain
+     events: every stage of the per-stage chain alone (each printed with
+     its route and its share of the bound), the whole chain
      (apply_sliced), the fused apply_sliced on the same input, and the top
      high stage and the top low stage each held word-equal to its plain
      version on its chain input and then timed beside it (the plain
@@ -205,6 +208,9 @@ SUMCHECK_KERNELS = ("sumcheck_round_kernel", "sumcheck_fold_kernelILb0E",
 # CHUNK32 route's five first
 BUTTERFLY_LOW_KERNELS = tuple(f"butterfly_low_kernelILi{s}ELb{c}E"
                               for c in (1, 0) for s in range(4, -1, -1))
+# and of butterfly_high_kernel<CHUNK32>, the CHUNK32 route's first
+BUTTERFLY_HIGH_KERNELS = ("butterfly_high_kernelILb1E",
+                          "butterfly_high_kernelILb0E")
 
 # The card's peaks for bound_ms (data-sheet estimates at 1.98 GHz): integer
 # logic on the int32 pipe (132 SMs x 64 lanes), the rate of the GF(2)
@@ -345,6 +351,7 @@ def reset_counts() -> None:
     for wrapper in COUNTED:
         wrapper.launches = 0
     cf.stage_group.route_launches = {"chunk32": 0, "general": 0}
+    ck.butterfly_high.route_launches = {"chunk32": 0, "general": 0}
     ck.butterfly_low.route_launches = {"chunk32": 0, "general": 0}
 
 
@@ -392,7 +399,8 @@ def phase_build() -> None:
              if "registers" in ln or "spill" in ln or "Compiling" in ln]
     say("build", f"nvcc {_build.build_info['seconds']:.1f} s "
         f"(load {wall:.1f} s); ptxas: {' | '.join(usage)}")
-    for name in SUMCHECK_KERNELS + BUTTERFLY_LOW_KERNELS:
+    for name in (SUMCHECK_KERNELS + BUTTERFLY_HIGH_KERNELS
+                 + BUTTERFLY_LOW_KERNELS):
         say("build", f"{name}: ptxas "
             f"{_build.kernel_usage(name) or 'not reported'}")
 
@@ -1332,25 +1340,64 @@ def phase_butterfly_kernels(dev, golden, sizes=(
         held = hold_ntt128_output(bitslice_untranspose(x).reshape(-1), words,
                                   log_h, log_rate, golden)
         say("butterfly_kernels", f"({log_h}, {log_rate}): {log_h - 5} high "
-            f"and 5 low stages ({x.shape[0]} rows; low routes "
-            f"{step_routes(ntt)}) word-equal to plain after every stage "
-            f"(max_abs_err {max(worst.values())}, tolerance exact); chained "
-            f"output matches the {held}")
+            f"and 5 low stages ({x.shape[0]} rows; high routes "
+            f"{step_routes(ntt, ck.butterfly_high)}, low routes "
+            f"{step_routes(ntt, ck.butterfly_low)}) word-equal to plain "
+            f"after every stage (max_abs_err {max(worst.values())}, "
+            f"tolerance exact); chained output matches the {held}")
+    worst["butterfly_high"] = max(worst["butterfly_high"],
+                                  check_high_routes(dev))
     worst["butterfly_low"] = max(worst["butterfly_low"],
                                  check_low_routes(dev))
     return worst
 
 
-def low_route(args) -> str:
-    """The butterfly_low route a low step's arguments ask for (its flag is
-    the last argument)."""
+def step_route(args) -> str:
+    """The route a per-stage step's arguments ask for (its flag is the
+    last argument)."""
     return "chunk32" if args[-1] else "general"
 
 
-def step_routes(ntt) -> list[str]:
-    """The route of each low stage of a per-stage transform, 4 .. 0."""
-    return [low_route(args) for _, kernel, _, args in ntt.stage_steps()
-            if kernel is ck.butterfly_low]
+def step_routes(ntt, kernel) -> list[str]:
+    """The route of each stage of a per-stage transform that ``kernel``
+    runs, in the transform's order."""
+    return [step_route(args) for _, k, _, args in ntt.stage_steps()
+            if k is kernel]
+
+
+def check_high_routes(dev, shapes=((2, 1), (6, 1), (48, 8), (32, 16),
+                                   (64, 32), (4096, 1024),
+                                   (65536, 2))) -> int:
+    """butterfly_high vs plain on both routes, on random rows and tables
+    at (rows, db): the general route with every word of w4 random, CHUNK32
+    with random GF(2^32) twiddles (word 0); partial tiles (2, 6 and 48
+    rows), several blocks a tile (db < 16), one block over several tiles
+    (db >= 16), more tiles than resident blocks (65536 rows)."""
+    rng = np.random.default_rng(SEED + 191)
+    worst = 0
+    for rows, db in shapes:
+        for chunk32 in (True, False):
+            w4 = rng.integers(0, 1 << 32, (rows // (2 * db), 4),
+                              dtype=np.uint32)
+            if chunk32:
+                w4[:, 1:] = 0
+            w4 = to_torch(w4, dev)
+            require(subfield_step((w4,)) == chunk32,
+                    "random table on the wrong side of the subfield test")
+            x = to_torch(rng.integers(0, 1 << 32, (rows, W),
+                                      dtype=np.uint32), dev)
+            want = ck.butterfly_high_plain(x.clone(), w4)
+            ck.butterfly_high(x, w4, chunk32)
+            torch.cuda.synchronize()
+            err = max_abs_err(x, want)
+            route = "chunk32" if chunk32 else "general"
+            require(err == 0, f"butterfly_high ({route}) differs from plain "
+                    f"on {rows} random rows at db {db} ({err})")
+            worst = max(worst, err)
+    say("butterfly_kernels", f"butterfly_high on random tables, (rows, db) "
+        f"{list(shapes)}: both routes word-equal to plain (max_abs_err "
+        f"{worst})")
+    return worst
 
 
 def check_low_routes(dev, rows=(1, 2, 3, 4096)) -> int:
@@ -1417,10 +1464,12 @@ def phase_per_stage_main(dev, golden, runs):
                 and others == 0, f"({lh}, {log_rate}): expected {lh - 5} "
                 f"butterfly_high and 5 butterfly_low launches and no other, "
                 f"got {counts} and {others} others")
-        routes = dict(ck.butterfly_low.route_launches)
-        require(routes == {"chunk32": 5, "general": 0}, f"({lh}, "
-                f"{log_rate}): every low stage must take the CHUNK32 route, "
-                f"got {routes}")
+        routes = {"high": dict(ck.butterfly_high.route_launches),
+                  "low": dict(ck.butterfly_low.route_launches)}
+        require(routes == {"high": {"chunk32": lh - 5, "general": 0},
+                           "low": {"chunk32": 5, "general": 0}},
+                f"({lh}, {log_rate}): every stage must take the CHUNK32 "
+                f"route, got {routes}")
         for name in total:
             total[name] += counts[name]
         require(tuple(out.shape) == ((1 << (lh + log_rate)) * 4,),
@@ -1428,7 +1477,7 @@ def phase_per_stage_main(dev, golden, runs):
         held = hold_ntt128_output(out, words, lh, log_rate, golden)
         say("per_stage_main", f"AdditiveNTT128({lh}, {log_rate}"
             f"{', use_fused=False' if lh > 5 else ''}).apply: {held} "
-            f"matches; launches {counts} (butterfly_low routes {routes}), "
+            f"matches; launches {counts} (routes {routes}), "
             f"stage_group 0; {sec:.3f} s host clock incl. upload and layout")
     say("per_stage_main", f"launches {total}")
     return total, big
@@ -1442,9 +1491,18 @@ def phase_per_stage_timing(dev, runs, big) -> dict:
         sliced = bitslice_transpose(to_torch(words, dev).reshape(-1, W))
         x = sliced.repeat(1 << log_rate, 1)
         steps = list(ntt.stage_steps())
-        stage_ms, held, low = [], {}, []
+        stage_ms, held = [], {}
+        alone = {"butterfly_high": [], "butterfly_low": []}
         for s, kernel, plain, args in steps:
             name = kernel.__name__
+            # R / 2 multiplies of 32 products: a high stage's row pairs, a
+            # low stage's lanes that reach the output (the u lanes of un;
+            # the v lanes are rebuilt from them); x read and written, the
+            # tables read
+            stage_bound = bound(
+                x.shape[0] // 2 * mul_ops(subfield_step(args)),
+                2 * x.numel() * 4 + sum(t.numel() * 4 for t in args
+                                        if torch.is_tensor(t)))
             if name not in held:       # the top stage of each kernel
                 got = kernel(x.clone(), *args)
                 err = max_abs_err(got, plain(x.clone(), *args))
@@ -1459,28 +1517,24 @@ def phase_per_stage_timing(dev, runs, big) -> dict:
                 peak = torch.cuda.max_memory_allocated()
                 held[name] = {"stage": s, "plain_ms": plain_ms,
                               "plain_peak_gib": peak / 2**30,
-                              "ms": device_time(kernel, xt, *args) * 1e3}
-                # R / 2 multiplies of 32 products: a high stage's row
-                # pairs, a low stage's lanes that reach the output (the u
-                # lanes of un; the v lanes are rebuilt from them); x read
-                # and written, the tables read
-                held[name].update(bound(
-                    x.shape[0] // 2 * mul_ops(subfield_step(args)),
-                    2 * x.numel() * 4 + sum(t.numel() * 4 for t in args
-                                            if torch.is_tensor(t))))
+                              "ms": device_time(kernel, xt, *args) * 1e3,
+                              **stage_bound}
                 del xt
                 stage_ms.append(held[name]["ms"])
             else:
                 stage_ms.append(device_time(kernel, x.clone(), *args) * 1e3)
-            if kernel is ck.butterfly_low:
-                low.append({"stage": s, "ms": stage_ms[-1],
-                            "route": low_route(args)})
+            alone[name].append({
+                "stage": s, "ms": stage_ms[-1], "route": step_route(args),
+                "bound_ms": stage_bound["bound_ms"],
+                "share_of_bound": stage_bound["bound_ms"] / stage_ms[-1]})
             kernel(x, *args)                    # advance the chain
         chain_ms = device_time(ntt.apply_sliced, sliced) * 1e3
         fused_ms = device_time(fused.apply_sliced, sliced) * 1e3
         torch.cuda.synchronize()
         out[log_rate] = {"chain_ms": chain_ms, "fused_ms": fused_ms,
-                         "stage_ms": stage_ms, "low_stages": low, **held}
+                         "stage_ms": stage_ms,
+                         "high_stages": alone["butterfly_high"],
+                         "low_stages": alone["butterfly_low"], **held}
         # the transform's bound, as the fused one counts it: the live
         # stages' multiplies, the input read and the output written
         live = live_steps(ntt)
@@ -1494,12 +1548,12 @@ def phase_per_stage_timing(dev, runs, big) -> dict:
             f"live stages {live}), fused apply_sliced {fused_ms:.3f} ms; "
             f"stages {steps[0][0]}..0 alone "
             f"{[round(t, 3) for t in stage_ms]} ms")
-        low_bound = held["butterfly_low"]["bound_ms"]
-        say("per_stage_timing", f"rate {log_rate} butterfly_low, every low "
-            f"stage alone: " + ", ".join(
-                f"s={t['stage']} {t['route']} {t['ms']:.3f} ms "
-                f"({100 * low_bound / t['ms']:.1f}% of its bound)"
-                for t in low) + f"; bound {low_bound:.3f} ms a stage")
+        for name, stages in alone.items():
+            say("per_stage_timing", f"rate {log_rate} {name}, every stage "
+                f"alone: " + ", ".join(
+                    f"s={t['stage']} {t['route']} {t['ms']:.3f} ms "
+                    f"({100 * t['share_of_bound']:.1f}% of its bound "
+                    f"{t['bound_ms']:.3f} ms)" for t in stages))
         for name, t in held.items():
             say("per_stage_timing", f"rate {log_rate} {name} stage "
                 f"{t['stage']} word-equal to plain on its chain input "
@@ -1666,6 +1720,7 @@ def main() -> int:
 
     def per_stage_entry(name: str, line: int) -> dict:
         t = ps_timing[0][name]
+        kind = name.removeprefix("butterfly_")
         return {
             "name": name, "route": "cuda",
             "source": "binius_ntt_tpu_torch/csrc/butterfly.cu",
@@ -1678,9 +1733,8 @@ def main() -> int:
                      f"such launches a transform; by_rate has rate 2",
             "by_rate": {r: {k: ps_timing[r][name][k] for k in (
                 "stage", "ms", "plain_ms", "bound_ms")} for r in (0, 2)},
-            **({"low_stages_by_rate": {r: ps_timing[r]["low_stages"]
-                                       for r in (0, 2)}}
-               if name == "butterfly_low" else {}),
+            f"{kind}_stages_by_rate": {
+                r: ps_timing[r][f"{kind}_stages"] for r in (0, 2)},
             "chain_ms_by_rate": {r: ps_timing[r]["chain_ms"]
                                  for r in (0, 2)},
             "chain_bound_ms_by_rate": {

@@ -31,7 +31,7 @@ from binius_ntt_tpu_torch.ntt import cuda_kernels as ck
 from binius_ntt_tpu_torch.ntt.cuda_fused import SUB_PLANES as SUB
 from binius_ntt_tpu_torch.ntt.additive import precompute_subspace_evals
 from binius_ntt_tpu_torch.ntt.additive_bitsliced import (apply_per_stage,
-                                                         low_routes,
+                                                         routes,
                                                          per_stage_tables)
 from binius_ntt_tpu_torch.utils.bits import lsr, to_numpy, to_torch, u32
 from test_torch_ntt128_per_stage import _jax_stage
@@ -109,7 +109,7 @@ def test_low_model_matches_plain_and_jax(log_h, log_rate, stage):
     cosets, nb = 1 << log_rate, (1 << log_h) // 32
     ntt = AdditiveNTT128(log_h, log_rate, use_fused=False, device="cpu")
     _, low_batch, low_lanes = ntt.stage_tables
-    assert ntt.low_chunk32[stage] is True
+    assert ntt.chunk32[stage] is True
     x = _words(1000 * log_h + 10 * log_rate + stage, (cosets * nb, W))
     got = low_model(x, low_batch[stage], low_lanes[stage], stage)
     want = ck.butterfly_low_plain(x.clone(), low_batch[stage],
@@ -165,8 +165,8 @@ def test_a_high_plane_takes_the_general_route(where):
     (16, 2), (20, 0), (20, 2)])
 def test_route_flag_true_for_every_per_stage_table(log_h, log_rate):
     rows = precompute_subspace_evals(log_h, log_rate, 7)
-    _, low_batch, low_lanes = per_stage_tables(rows, log_h, log_rate, "cpu")
-    assert low_routes(low_batch, low_lanes) == {s: True for s in range(5)}
+    tables = per_stage_tables(rows, log_h, log_rate, "cpu")
+    assert routes(*tables) == {s: True for s in range(log_h)}
 
 
 @pytest.mark.parametrize("log_h,log_rate", [(5, 0), (6, 1), (9, 2), (12, 4)])
@@ -179,11 +179,11 @@ def test_recorded_flag_equals_chip_smoke_subfield_step(log_h, log_rate):
             if k is ck.butterfly_low]
     assert [s for s, _ in lows] == [4, 3, 2, 1, 0]
     for s, args in lows:
-        assert args[-1] is ntt.low_chunk32[s] is subfield_step(args)
+        assert args[-1] is ntt.chunk32[s] is subfield_step(args)
 
 
 def test_fused_path_records_no_low_routes():
-    assert AdditiveNTT128(6, 0, device="cpu").low_chunk32 == {}
+    assert AdditiveNTT128(6, 0, device="cpu").chunk32 == {}
 
 
 def test_apply_per_stage_computes_the_flags_when_not_given():
@@ -193,7 +193,7 @@ def test_apply_per_stage_computes_the_flags_when_not_given():
     assert torch.equal(apply_per_stage(data, *ntt.stage_tables, log_rate=1),
                        want)
     assert torch.equal(apply_per_stage(data, *ntt.stage_tables, log_rate=1,
-                                       chunk32=ntt.low_chunk32), want)
+                                       chunk32=ntt.chunk32), want)
 
 
 @pytest.mark.parametrize("chunk32", [False, True])

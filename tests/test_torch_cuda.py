@@ -521,6 +521,62 @@ def test_butterfly_high_on_random_rows(dev):
     assert torch.equal(x, want)
 
 
+def _high_table(seed, blocks, subfield, device):
+    """A random high-stage table (blocks, 4); with ``subfield`` only word
+    0 is set (GF(2^32) twiddles, the CHUNK32 route)."""
+    w4 = np.random.default_rng(seed).integers(0, 1 << 32, (blocks, 4),
+                                              dtype=np.uint32)
+    if subfield:
+        w4[:, 1:] = 0
+    return to_torch(w4, device)
+
+
+@pytest.mark.parametrize("chunk32", [True, False])
+@pytest.mark.parametrize("rows,db", [(2, 1), (6, 1), (48, 8), (32, 16),
+                                     (64, 32), (4096, 1024), (65536, 2)])
+def test_butterfly_high_routes_on_random_rows(dev, rows, db, chunk32):
+    """Each route on random rows and tables: a partial tile (2, 6 and 48
+    rows), several blocks a tile (db < 16), one block over several tiles
+    (db >= 16), and more tiles than the card holds blocks at once."""
+    w4 = _high_table(400 + rows + db, rows // (2 * db), chunk32, dev)
+    assert ck.high_subfield(w4) == chunk32
+    x = _rand(500 + rows + db, (rows, 128), dev)
+    want = ck.butterfly_high_plain(x.clone(), w4)
+    route = "chunk32" if chunk32 else "general"
+    before = dict(ck.butterfly_high.route_launches)
+    assert ck.butterfly_high(x, w4, chunk32) is x
+    torch.cuda.synchronize()
+    assert torch.equal(x, want)
+    before[route] += 1
+    assert ck.butterfly_high.route_launches == before
+
+
+@pytest.mark.parametrize("chunk32", [True, False])
+def test_butterfly_high_routes_on_real_tables(dev, chunk32):
+    """Both routes on the tables of a real transform, random rows."""
+    ntt = AdditiveNTT128(12, 1, use_fused=False, device=dev)
+    assert ntt.chunk32 == {s: True for s in range(12)}
+    high, _, _ = ntt.stage_tables
+    for s in range(5, 12):
+        x = _rand(600 + s, (2 * (1 << 12) // 32, 128), dev)
+        want = ck.butterfly_high_plain(x.clone(), high[s])
+        ck.butterfly_high(x, high[s], chunk32)
+        torch.cuda.synchronize()
+        assert torch.equal(x, want)
+
+
+@pytest.mark.parametrize("chunk32", [True, False])
+def test_butterfly_high_refuses_bad_calls_on_both_routes(dev, chunk32):
+    x = _rand(9, (8, 128), dev)
+    before = dict(ck.butterfly_high.route_launches)
+    with pytest.raises(ValueError, match="blocks"):
+        ck.butterfly_high(x, _rand(10, (3, 4), dev), chunk32)
+    with pytest.raises(ValueError, match="aligned"):
+        ck.butterfly_high(x, _rand(10, (9, 4), dev).view(-1)[1:9].view(2, 4),
+                          chunk32)
+    assert ck.butterfly_high.route_launches == before
+
+
 def _low_tables(seed, rows, subfield, device):
     """Random low-stage tables: a4 (rows, 4) and lane planes (128,); with
     ``subfield`` only a4 word 0 and lane planes 0..31 are set (GF(2^32)
@@ -556,7 +612,7 @@ def test_butterfly_low_on_random_rows(dev, stage, rows, chunk32):
 def test_butterfly_low_routes_on_real_tables(dev, chunk32):
     """Both routes on the tables of a real transform, random rows."""
     ntt = AdditiveNTT128(12, 1, use_fused=False, device=dev)
-    assert ntt.low_chunk32 == {s: True for s in range(5)}
+    assert ntt.chunk32 == {s: True for s in range(12)}
     _, low_batch, low_lanes = ntt.stage_tables
     for s in range(5):
         x = _rand(300 + s, (low_batch[s].shape[0], 128), dev)

@@ -14,6 +14,7 @@ package's tests never run them either.
 
 import hashlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -70,6 +71,19 @@ def test_per_stage_matches_jax(log_h, log_rate):
                           np.asarray(jnt.apply_sliced(to_numpy(sliced))))
 
 
+_MUL7 = jax.jit(lambda a, b: bf_jax.multiply(a, b, 7))
+
+
+def _mul7(a, b):
+    """bf_jax.multiply(a, b, 7) with broadcasting, as one jitted call on
+    flat (N, 128) operands: the same words, but compiled once per N
+    instead of once per operation and shape (eager dispatch takes ~8 s
+    for each new shape)."""
+    shape = jnp.broadcast_shapes(a.shape, b.shape)
+    return _MUL7(jnp.broadcast_to(a, shape).reshape(-1, W),
+                 jnp.broadcast_to(b, shape).reshape(-1, W)).reshape(shape)
+
+
 def _jax_stage(x, jnt, s, log_h, log_rate):
     """One stage of the reference's jnp branch (additive_bitsliced.py:
     222-265) on (C, nb, 128) uint32 numpy words."""
@@ -82,7 +96,7 @@ def _jax_stage(x, jnt, s, log_h, log_rate):
         wp = _expand_bits(w4)[:, :, None, :]
         v5 = x.reshape(cosets, groups, 2, db, W)
         u, v = v5[:, :, 0], v5[:, :, 1]
-        u2 = u ^ bf_jax.multiply(wp, v, 7)
+        u2 = u ^ _mul7(wp, v)
         out = jnp.stack([u2, u2 ^ v], axis=2)
     else:
         a4 = jnt._low_batch_tables[s].reshape(-1, nb, 4)[:cosets]
@@ -90,7 +104,7 @@ def _jax_stage(x, jnt, s, log_h, log_rate):
         shift = 1 << s
         umask = jnp.uint32(LANE_MASKS[s])
         vmask = jnp.uint32((LANE_MASKS[s] << shift) & 0xFFFFFFFF)
-        un = x ^ bf_jax.multiply(wp, x >> shift, 7)
+        un = x ^ _mul7(wp, x >> shift)
         out = (un & umask) | ((x ^ (un << shift)) & vmask)
     return np.asarray(out).reshape(cosets * nb, W)
 
@@ -198,8 +212,8 @@ def test_stage_steps_are_the_path_apply_sliced_takes(log_h, log_rate):
         + [(s, "butterfly_low") for s in range(4, -1, -1)])
     for s, kernel, plain, args in steps:
         assert plain.__name__ == kernel.__name__ + "_plain"
-        want = ((high[s],) if s >= 5 else
-                (low_batch[s], low_lanes[s], s, ntt.low_chunk32[s]))
+        want = ((high[s], ntt.chunk32[s]) if s >= 5 else
+                (low_batch[s], low_lanes[s], s, ntt.chunk32[s]))
         assert len(args) == len(want) and all(
             a is b for a, b in zip(args, want))
     rng = np.random.default_rng(log_h)

@@ -1,22 +1,22 @@
 #!/usr/bin/env python3
-"""Check and time the per-stage GF(2^128) NTT's butterfly_low on one GPU.
+"""Check and time the per-stage GF(2^128) NTT's butterflies on one GPU.
 
     python3 tools/torch_butterfly_ab.py
 
 Run from the root of a checkout: it builds and times that checkout's
 binius_ntt_tpu_torch, so two checkouts run in turns (parent, change,
 change, parent) compare two versions on one card.  It holds
-``butterfly_low`` word for word to ``butterfly_low_plain`` at every stage
-of AdditiveNTT128(12, 2, use_fused=False) on numpy-seeded random words,
-then, at 2^24 for rates 0 and 2, on the chain's own inputs: the same
-random input through the transform's high stages, then each low stage
-4 .. 0 held to the plain version and timed alone with CUDA events (median
-of 7), each on the input the chain gives it.  Beside them it times the
-whole per-stage chain (apply_sliced) and the top high stage, which this
-tool's kernel does not touch.  Prints ptxas's figures for every
-butterfly_low_kernel instantiation (read with this script's own
+``butterfly_high`` and ``butterfly_low`` word for word to their plain
+versions at every stage of AdditiveNTT128(12, 2, use_fused=False) on
+numpy-seeded random words, then, at 2^24 for rates 0 and 2, on the
+chain's own inputs: one random input through the transform, each stage
+(high stages 23 .. 5, then low stages 4 .. 0) held to its plain version
+and timed alone with CUDA events (median of 7), each on the input the
+chain gives it.  Beside them it times the whole per-stage chain
+(apply_sliced).  Prints ptxas's figures for every butterfly_high_kernel
+and butterfly_low_kernel instantiation (read with this script's own
 ``_build.kernel_usage``, so a parent checkout reports them too), the route
-each low stage took, and one JSON object with the card's name and power
+each stage took, and one JSON object with the card's name and power
 limit.  Imports no JAX.
 """
 
@@ -55,16 +55,18 @@ def own_kernel_usage():
     return mod.kernel_usage
 
 
-def low_entries(log: str) -> list[str]:
-    """The mangled names of the butterfly_low_kernel instantiations that
-    ptxas compiled, in the log's order."""
+def butterfly_entries(log: str) -> list[str]:
+    """The mangled names of the butterfly_high_kernel and
+    butterfly_low_kernel instantiations that ptxas compiled, in the log's
+    order."""
     return list(dict.fromkeys(re.findall(
-        r"Compiling entry function '(\w*butterfly_low_kernel\w*)'", log)))
+        r"Compiling entry function '(\w*butterfly_(?:high|low)_kernel\w*)'",
+        log)))
 
 
 def route(args) -> str:
-    """The route a low step's arguments ask for (a checkout before the
-    route flag has no flag: its one route is the general one)."""
+    """The route a step's arguments ask for (a checkout before a kernel's
+    route flag has no flag there: its one route is the general one)."""
     flag = args[-1] if isinstance(args[-1], bool) else False
     return "chunk32" if flag else "general"
 
@@ -75,19 +77,17 @@ def sliced_words(log_h: int, dev, rng) -> torch.Tensor:
 
 
 def check_small(dev, rng) -> int:
-    """butterfly_low == butterfly_low_plain at every stage of (12, 2)."""
+    """Both butterflies == their plain versions at every stage of (12,
+    2)."""
     ntt = AdditiveNTT128(12, 2, use_fused=False, device=dev)
     x = sliced_words(12, dev, rng).repeat(4, 1)
     held = 0
     for s, kernel, plain, args in ntt.stage_steps():
-        if kernel is not ck.butterfly_low:
-            kernel(x, *args)
-            continue
         want = plain(x.clone(), *args)
         kernel(x, *args)
         if not torch.equal(x, want):
-            raise SystemExit(f"butterfly_low differs from plain at stage "
-                             f"{s} of (12, 2)")
+            raise SystemExit(f"{kernel.__name__} differs from plain at "
+                             f"stage {s} of (12, 2)")
         held += 1
     return held
 
@@ -96,24 +96,21 @@ def run(log_rate: int, dev, rng) -> dict:
     ntt = AdditiveNTT128(LOG_H, log_rate, use_fused=False, device=dev)
     data = sliced_words(LOG_H, dev, rng)
     x = data.repeat(1 << log_rate, 1)
-    out = {"low": {}}
+    out = {"high": {}, "low": {}}
     for s, kernel, plain, args in ntt.stage_steps():
-        if kernel is ck.butterfly_low:
-            want = plain(x.clone(), *args)
-            got = kernel(x.clone(), *args)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise SystemExit(f"rate {log_rate}: butterfly_low differs "
-                                 f"from plain at stage {s} of 2^{LOG_H}")
-            del got, want
-            out["low"][s] = {
-                "route": route(args),
-                "ms": device_time(kernel, x.clone(), *args) * 1e3}
-        elif s == LOG_H - 1:
-            out["high_top_ms"] = device_time(kernel, x.clone(),
-                                             *args) * 1e3
+        want = plain(x.clone(), *args)
+        got = kernel(x.clone(), *args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise SystemExit(f"rate {log_rate}: {kernel.__name__} differs "
+                             f"from plain at stage {s} of 2^{LOG_H}")
+        del got, want
+        out["high" if kernel is ck.butterfly_high else "low"][s] = {
+            "route": route(args),
+            "ms": device_time(kernel, x.clone(), *args) * 1e3}
         kernel(x, *args)                        # advance the chain
-    out["low_sum_ms"] = sum(t["ms"] for t in out["low"].values())
+    for kind in ("high", "low"):
+        out[f"{kind}_sum_ms"] = sum(t["ms"] for t in out[kind].values())
     out["chain_ms"] = device_time(ntt.apply_sliced, data) * 1e3
     torch.cuda.synchronize()
     return out
@@ -130,7 +127,8 @@ def main() -> int:
     _build.library()
     kernel_usage = own_kernel_usage()
     log = _build.build_info["log"]
-    usage = {name: kernel_usage(name, log) for name in low_entries(log)}
+    usage = {name: kernel_usage(name, log)
+             for name in butterfly_entries(log)}
     for name, line in usage.items():
         print(f"[ptxas] {name}: {line or 'not reported'}", flush=True)
     out = {"checkout": os.getcwd(), "card": smi, "ptxas": usage}
