@@ -5,7 +5,8 @@ all of them at once, and the objects are linked into one shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds, not
 minutes).  The library lands in ``_build/`` beside this file (listed in
 .gitignore), named by a digest of the sources and flags, so a changed
-source rebuilds and an unchanged one loads the existing file.
+source rebuilds and an unchanged one loads the existing file (and the
+compiler's report, kept beside it).
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises if that is not 0.  Nothing here runs at import time.
@@ -39,7 +40,7 @@ _SIGNATURES = {
     "bntt_sumcheck_fold": (_P, _I, _L, _L, _I, _U, _U, _U, _U, _P),
     "bntt_bitslice_lane_groups": (_P, _P, _L, _P),
     "bntt_stage_group32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _P),
+                           _I, _P),
     "bntt_stage_group_r2": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "bntt_prime_round": (_P, _P, _L, _L, _P),
     "bntt_prime_fold": (_P, _L, _L, _U, _U, _U, _U, _P),
@@ -87,8 +88,11 @@ def _compile() -> Path:
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
     out = BUILD_DIR / f"libbntt_{digest.hexdigest()[:16]}.so"
+    saved_log = out.with_suffix(".log")
     if out.exists():
-        build_info.update(seconds=0.0, log="(cached)")
+        build_info.update(seconds=0.0, log=(saved_log.read_text()
+                                            if saved_log.exists()
+                                            else "(cached)"))
         return out
     work = BUILD_DIR / f"objects.{os.getpid()}"
     work.mkdir(parents=True, exist_ok=True)
@@ -101,6 +105,7 @@ def _compile() -> Path:
                     for src, obj in zip(sources, objects)])
         log += _run([[nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
                       *map(str, objects)]])
+        saved_log.write_text(log)
         os.replace(tmp, out)
     finally:
         tmp.unlink(missing_ok=True)
@@ -126,9 +131,10 @@ def kernel_usage(name: str, log: str | None = None) -> str:
     """What ptxas reported for the first entry function whose mangled name
     holds ``name`` in the build log (``build_info["log"]`` unless given):
     its stack frame and spill line, then its registers line; "" when the
-    log does not have it (a cached library).  A template instantiation is
-    named by the start of its mangled arguments, as in
-    ``"sumcheck_fold_kernelILb1E"`` for ``sumcheck_fold_kernel<true>``."""
+    log does not have it (a library cached without its report).  A
+    template instantiation is named by the start of its mangled arguments,
+    as in ``"sumcheck_fold_kernelILb1E"`` for
+    ``sumcheck_fold_kernel<true>``."""
     lines = [ln.strip() for ln in
              (build_info.get("log", "") if log is None else log).splitlines()]
     for i, ln in enumerate(lines):

@@ -39,7 +39,8 @@ from ..layout.bitslicing import transpose32
 from ..utils.bits import lsr, to_torch, u32
 from .cuda_fused import _parity_planes
 
-__all__ = ["KB", "KU", "plan_groups32", "make_group_tables32",
+__all__ = ["KB", "KU", "SWEPT_PLANS", "SMEM_LIMIT", "group_cols32",
+           "tile_bytes32", "plan_groups32", "make_group_tables32",
            "build_tables32", "stage_group32", "stage_group32_plain",
            "bitslice_lane_groups", "bitslice_lane_groups_plain",
            "apply_fused32"]
@@ -50,15 +51,26 @@ PACK = 4             # bit-sliced blocks packed per 128-word row
 W = PACK * W32
 N_LOW = 7            # stages 6..0 run in the bottom group's low section
 
-# Plan for Hopper.  The kernel keeps its tile in global memory and relies
-# on L2 (50 MB) to hold it between the stages of a group, so the bound is
-# the tiles of all resident blocks together, not a per-block memory: a
-# block works on one (2^k, 128) tile column of 2^k * 512 bytes, and one
-# block of 256 threads per SM (the multiply takes the registers) puts 132
-# of them in flight.  KB = 8 and KU = 9 keep that at 17-33 MB, and cut 2^24
-# points into two groups.  Any plan gives identical output bits.
+# Plan for Hopper.  KB / KU are the most row bits of the bottom / an upper
+# group.  Every group runs on a tile in shared memory: an upper group's
+# block holds one 128-byte lane group of each of its 2^k tile rows in
+# group_cols32 columns (64 KB at k = 9, 128 KB at k = 10, one column
+# each), the bottom group's block all four lane groups of its 2^k rows
+# (64 KB at k = 7, 128 KB at k = 8), so no plan may go beyond KU = 10 or
+# KB = 8 (SMEM_LIMIT).  At 2^24 (17 row bits) the two-group plans are
+# (8, 9) and (7, 10); on the H100, (8, 9) ran the chain 7% faster than
+# (7, 10) and 10-17% faster than the three-group plans below.  Any plan
+# gives identical output bits.
 KB = 8
 KU = 9
+# the plans the card sweep compared at 2^24 (tools/torch_stage_group32_ab.py
+# --plans; PERF.md): the two-group ones and three-group ones
+SWEPT_PLANS = ((8, 9), (7, 10), (6, 10), (8, 8), (5, 10))
+# the most shared memory one block may have on the card
+SMEM_LIMIT = 227 * 1024
+# butterflies a pass of an upper block should have: a small group's block
+# takes more columns until it has this many (128 threads, 32 KB of tile)
+BLOCK_BUTTERFLIES = 128
 
 _LANE_MASKS = (0x55555555, 0x33333333, 0x0F0F0F0F, 0x00FF00FF, 0x0000FFFF)
 _LOW_NAMES = ("mlo_t", "mlo_i", "cpl", "lpl")
@@ -184,6 +196,20 @@ def build_tables32(rows, log_h: int, log_rate: int, device=None):
     return tuple(out)
 
 
+def group_cols32(k: int, post: int) -> int:
+    """Tile columns an upper group's block covers: the fewest (a power of
+    two dividing ``post``) that give a pass BLOCK_BUTTERFLIES butterflies,
+    one for a group of 2^8 rows or more."""
+    return max(1, min(post, (2 * BLOCK_BUTTERFLIES) >> k))
+
+
+def tile_bytes32(k: int, include_low: bool, cols: int = 1) -> int:
+    """Shared memory of one stage_group32 block: 2^k * cols slots of 128
+    bytes (one lane group of a tile row), four sets of 2^k in the bottom
+    group."""
+    return (PACK if include_low else cols) * (W32 * 4 << k)
+
+
 def _table_shapes(k: int, include_low: bool) -> dict:
     shapes = {"mtile": (k, W32), "minst": (k, W32)}
     if include_low:
@@ -297,7 +323,8 @@ def stage_group32(x, tabs, *, t0: int, k: int, include_low: bool,
     Covers row stages 7+t0+k-1 .. 7+t0 and, if include_low, the low stages
     6..0.  x is updated in place and returned.  A CPU tensor runs
     :func:`stage_group32_plain`; a CUDA tensor launches the kernel of
-    csrc/stage_group32.cu or raises.
+    csrc/stage_group32.cu or raises, as it does for a group whose tile
+    (:func:`tile_bytes32`) exceeds SMEM_LIMIT.
     """
     if x.device.type == "cpu":
         return stage_group32_plain(x, tabs, t0=t0, k=k,
@@ -307,6 +334,13 @@ def stage_group32(x, tabs, *, t0: int, k: int, include_low: bool,
         raise ValueError(f"stage_group32: unsupported device {x.device}")
     n_inst, post = _group_geometry32(x, tabs, t0, k, include_low, cosets,
                                      log_nbr)
+    cols = 1 if include_low else group_cols32(k, post)
+    tile = tile_bytes32(k, include_low, cols)
+    if tile > SMEM_LIMIT:
+        kind = "bottom" if include_low else "upper"
+        raise ValueError(f"stage_group32: the {kind} group's tile of 2^{k} "
+                         f"rows needs {tile} bytes of shared memory, more "
+                         f"than {SMEM_LIMIT}")
     zero_mask = sum(1 << st for st, z in enumerate(tabs["zero"]) if z)
     low = [tabs[name].data_ptr() if include_low else None
            for name in _LOW_NAMES]
@@ -314,7 +348,7 @@ def stage_group32(x, tabs, *, t0: int, k: int, include_low: bool,
     with torch.cuda.device(x.device):
         rc = lib.bntt_stage_group32(
             x.data_ptr(), tabs["mtile"].data_ptr(), tabs["minst"].data_ptr(),
-            *low, n_inst, k, post, int(include_low), zero_mask,
+            *low, n_inst, k, post, cols, int(include_low), zero_mask,
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "stage_group32")
     stage_group32.launches += 1

@@ -10,8 +10,9 @@ run with a non-zero exit and no result line:
   1. device   — a CUDA device of capability (9, 0), its name and power limit;
   2. build    — the kernels of binius_ntt_tpu_torch/csrc built by nvcc,
      then the stack frame, spills and registers of the sumcheck kernels
-     and of every butterfly_high_kernel and butterfly_low_kernel
-     instantiation as ptxas reports them, a line each;
+     and of every butterfly_high_kernel, butterfly_low_kernel and
+     stage_group32_kernel instantiation as ptxas reports them, a line
+     each;
   3. mul_tiles   — kernel vs its plain torch version on the card, 2^18 rows;
   4. stage_group — kernel vs plain, group by group, at log_h 16 (rates 0
      and 2, production plan) and at (9, 1) and (12, 0) with a forced
@@ -58,8 +59,9 @@ run with a non-zero exit and no result line:
      2, both kernels held word-equal to their plain versions at the main
      path's shapes (the lane-group transpose on the 2^17 input rows and on
      the cosets * 2^17 output rows, stage_group32 group by group); then,
-     with CUDA events, the stage-group chain, kernel vs plain, at r = 0 and
-     2; the lane-group transpose, kernel vs plain; apply at r = 0 and 2;
+     with CUDA events, the stage-group chain, kernel vs plain, and each
+     group alone, at r = 0 and 2; the lane-group transpose, kernel vs
+     plain; apply at r = 0 and 2;
      and the compact torch path (use_fused=False) as the whole-transform
      plain figure;
  13. bb31_kernels — the BB31 NTT's stage_group_r2 vs its plain version group
@@ -211,6 +213,9 @@ BUTTERFLY_LOW_KERNELS = tuple(f"butterfly_low_kernelILi{s}ELb{c}E"
 # and of butterfly_high_kernel<CHUNK32>, the CHUNK32 route's first
 BUTTERFLY_HIGH_KERNELS = ("butterfly_high_kernelILb1E",
                           "butterfly_high_kernelILb0E")
+# and of stage_group32_kernel<LOW>: the upper groups', the bottom group's
+STAGE_GROUP32_KERNELS = ("stage_group32_kernelILb0E",
+                         "stage_group32_kernelILb1E")
 
 # The card's peaks for bound_ms (data-sheet estimates at 1.98 GHz): integer
 # logic on the int32 pipe (132 SMs x 64 lanes), the rate of the GF(2)
@@ -400,7 +405,7 @@ def phase_build() -> None:
     say("build", f"nvcc {_build.build_info['seconds']:.1f} s "
         f"(load {wall:.1f} s); ptxas: {' | '.join(usage)}")
     for name in (SUMCHECK_KERNELS + BUTTERFLY_HIGH_KERNELS
-                 + BUTTERFLY_LOW_KERNELS):
+                 + BUTTERFLY_LOW_KERNELS + STAGE_GROUP32_KERNELS):
         say("build", f"{name}: ptxas "
             f"{_build.kernel_usage(name) or 'not reported'}")
 
@@ -973,18 +978,26 @@ def phase_ntt32_timing(dev, runs) -> dict:
                    log_nbr=ntt.log_h - 7)
 
         ms = device_time(groups, cf32.stage_group32) * 1e3
+        group_ms = []
+        for (t0, k, low, tabs) in ntt.tables:
+            group_ms.append(device_time(
+                lambda t0=t0, k=k, low=low, tabs=tabs: cf32.stage_group32(
+                    x, tabs, t0=t0, k=k, include_low=low, cosets=cosets,
+                    log_nbr=ntt.log_h - 7)) * 1e3)
         torch.cuda.reset_peak_memory_stats()
         plain_ms = device_time(groups, cf32.stage_group32_plain, warmup=1,
                                reps=3) * 1e3
         peak = torch.cuda.max_memory_allocated()
         apply_ms = device_time(ntt.apply, x_dev) * 1e3
-        out["chain"][log_rate] = {"ms": ms, "plain_ms": plain_ms}
+        out["chain"][log_rate] = {"ms": ms, "plain_ms": plain_ms,
+                                  "group_ms": group_ms}
         out["apply"][log_rate] = apply_ms
         plan = [(t0, k, low) for (t0, k, low, _) in ntt.tables]
         say("ntt32_timing", f"2^24 rate {log_rate} stage groups {plan}: "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (peak "
-            f"{peak / 2**30:.1f} GiB); apply from device words "
-            f"{apply_ms:.3f} ms")
+            f"kernel {ms:.3f} ms (each group alone "
+            f"{', '.join(f'{g:.3f}' for g in group_ms)} ms), plain "
+            f"{plain_ms:.3f} ms (peak {peak / 2**30:.1f} GiB); apply from "
+            f"device words {apply_ms:.3f} ms")
 
     rng = np.random.default_rng(SEED + 33)
     x = to_torch(rng.integers(0, 1 << 32, (1 << 17, W), dtype=np.uint32),
@@ -1679,9 +1692,12 @@ def main() -> int:
     lane_rows = 1 << 17
     lanes_bound = bound(lane_rows * 4 * TRANSPOSE32_OPS,
                         2 * lane_rows * W * 4)
-    sg32_bound = bound(
-        live_stages(tabs["zero"] for *_, tabs in n32_runs[0][1].tables)
-        * (n24 // 64) * MUL32_OPS, 2 * n24 * 4)
+    # rate r: 2^r cosets of 2^24 points, 2^(18+r) products a live stage
+    sg32_bounds = {r: bound(
+        live_stages(tabs["zero"] for *_, tabs in ntt.tables)
+        * (n24 << r) // 64 * MUL32_OPS, 2 * (n24 << r) * 4)
+        for r, ntt, _ in n32_runs}
+    sg32_bound = sg32_bounds[0]
 
     def sumcheck_entry(kind: str, line: int) -> dict:
         return {
@@ -1782,6 +1798,8 @@ def main() -> int:
              "shape": "every group of the 2^24 rate-0 transform; "
                       "by_rate has rate 2",
              "by_rate": n32_timing["chain"],
+             "bound_ms_by_rate": {r: b["bound_ms"]
+                                  for r, b in sg32_bounds.items()},
              "apply_ms_by_rate": n32_timing["apply"],
              "compact_plain_apply_ms": n32_timing["compact_ms"],
              **sg32_bound},

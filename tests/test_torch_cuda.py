@@ -23,7 +23,8 @@ from test_torch_sumcheck_golden import (SUMCHECK_TRANSCRIPT_MD5,
                                         transcript_md5)
 from torch_stage_group_tables import random_group_tables
 from binius_ntt_tpu_torch import (AdditiveNTT, AdditiveNTT128, NTTRadix2,
-                                  PrimeFieldSumcheck, Sumcheck, tower_compact)
+                                  PrimeFieldSumcheck, Sumcheck, _build,
+                                  tower_compact)
 from binius_ntt_tpu_torch.fields import tower_scalar
 from binius_ntt_tpu_torch.layout.bitslicing import (bitslice_transpose,
                                                     bitslice_untranspose)
@@ -330,6 +331,71 @@ def test_stage_group32_kernel_matches_plain(dev, log_h, log_rate, kb, ku,
     if kb is not None:                  # else the production plan
         monkeypatch.setattr(cf32, "KB", kb)
         monkeypatch.setattr(cf32, "KU", ku)
+    _stage_group32_groups_match_plain(dev, log_h, log_rate)
+
+
+@pytest.mark.parametrize("log_h,log_rate", [(16, 2), (24, 0)])
+@pytest.mark.parametrize("kb,ku", cf32.SWEPT_PLANS)
+def test_stage_group32_kernel_under_each_swept_plan(dev, kb, ku, log_h,
+                                                    log_rate, monkeypatch):
+    """At 2^24 the plans reach the largest tiles: an upper group of 2^10
+    rows (128 KB a lane group) and a bottom group of 2^8 (128 KB)."""
+    monkeypatch.setattr(cf32, "KB", kb)
+    monkeypatch.setattr(cf32, "KU", ku)
+    _stage_group32_groups_match_plain(dev, log_h, log_rate)
+
+
+@pytest.mark.parametrize("log_h,log_rate,kb,ku,groups", [
+    (12, 2, 8, 9, [(0, 5, True)]),                  # bottom only
+    (13, 0, 8, 9, [(0, 6, True)]),
+    (16, 0, 8, 9, [(8, 1, False), (0, 8, True)]),   # an upper group of k = 1
+    (10, 2, 1, 1, [(2, 1, False), (1, 1, False), (0, 1, True)]),
+    (9, 0, 0, 2, [(0, 2, False), (0, 0, True)]),    # a bottom group of one row
+])
+def test_stage_group32_kernel_on_edge_plans(dev, log_h, log_rate, kb, ku,
+                                            groups, monkeypatch):
+    monkeypatch.setattr(cf32, "KB", kb)
+    monkeypatch.setattr(cf32, "KU", ku)
+    got = _stage_group32_groups_match_plain(dev, log_h, log_rate)
+    assert got == groups
+
+
+@pytest.mark.parametrize("kb,ku,log_h", [(0, 11, 18), (9, 9, 16)])
+def test_stage_group32_refuses_a_tile_beyond_shared_memory(dev, kb, ku, log_h,
+                                                         monkeypatch):
+    """A group whose tile exceeds the card's shared memory (an upper group
+    of 2^11 rows, 256 KB a lane group; a bottom group of 2^9 rows, 256 KB)
+    is refused by the wrapper and by the C entry point, and not
+    launched."""
+    monkeypatch.setattr(cf32, "KB", kb)
+    monkeypatch.setattr(cf32, "KU", ku)
+    rows = precompute_subspace_evals(log_h, 0, 5)
+    tables = cf32.build_tables32(rows, log_h, 0, dev)
+    t0, k, low, tabs = next(g for g in tables
+                            if cf32.tile_bytes32(g[1], g[2])
+                            > cf32.SMEM_LIMIT)
+    x = _rand(11, (1, 1 << (log_h - 7), 128), dev)
+    before, x_before = cf32.stage_group32.launches, x.clone()
+    with pytest.raises(ValueError, match="shared memory"):
+        cf32.stage_group32(x, tabs, t0=t0, k=k, include_low=low, cosets=1,
+                           log_nbr=log_h - 7)
+    n_inst, post = cf32._group_geometry32(x, tabs, t0, k, low, 1, log_h - 7)
+    low_ptrs = [tabs[n].data_ptr() if low else None
+                for n in ("mlo_t", "mlo_i", "cpl", "lpl")]
+    rc = _build.library().bntt_stage_group32(
+        x.data_ptr(), tabs["mtile"].data_ptr(), tabs["minst"].data_ptr(),
+        *low_ptrs, n_inst, k, post, 1, int(low), 0,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 1                      # cudaErrorInvalidValue
+    assert cf32.stage_group32.launches == before
+    assert torch.equal(x, x_before)
+
+
+def _stage_group32_groups_match_plain(dev, log_h, log_rate):
+    """stage_group32 == stage_group32_plain at every group of the current
+    plan on the upstream input, the chained output held to the golden
+    digest where the table has one; returns the plan's groups."""
     rows = precompute_subspace_evals(log_h, log_rate, 5)
     tables = cf32.build_tables32(rows, log_h, log_rate, dev)
     cosets = 1 << log_rate
@@ -348,6 +414,7 @@ def test_stage_group32_kernel_matches_plain(dev, log_h, log_rate, kb, ku,
     if log_rate in ADDITIVE_NTT_HASHES:         # no upstream rate-4 table
         out = cf32.bitslice_lane_groups(x.view(-1, 128)).reshape(-1)
         assert _md5(out) == ADDITIVE_NTT_HASHES[log_rate][log_h]
+    return [(t0, k, low) for (t0, k, low, _) in tables]
 
 
 @pytest.mark.parametrize("log_h,log_rate", [(7, 0), (12, 0), (10, 2),
