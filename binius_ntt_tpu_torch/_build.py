@@ -41,7 +41,7 @@ _SIGNATURES = {
     "bntt_bitslice_lane_groups": (_P, _P, _L, _P),
     "bntt_stage_group32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _P),
-    "bntt_stage_group_r2": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "bntt_stage_group_r2": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "bntt_prime_round": (_P, _P, _L, _L, _P),
     "bntt_prime_fold": (_P, _L, _L, _U, _U, _U, _U, _P),
     "bntt_butterfly_high": (_P, _P, _L, _I, _I, _P),

@@ -9,10 +9,10 @@ run with a non-zero exit and no result line:
 
   1. device   — a CUDA device of capability (9, 0), its name and power limit;
   2. build    — the kernels of binius_ntt_tpu_torch/csrc built by nvcc,
-     then the stack frame, spills and registers of the sumcheck kernels
-     and of every butterfly_high_kernel, butterfly_low_kernel and
-     stage_group32_kernel instantiation as ptxas reports them, a line
-     each;
+     then the stack frame, spills and registers of the sumcheck kernels,
+     of every butterfly_high_kernel, butterfly_low_kernel and
+     stage_group32_kernel instantiation and of stage_group_r2_kernel as
+     ptxas reports them, a line each;
   3. mul_tiles   — kernel vs its plain torch version on the card, 2^18 rows;
   4. stage_group — kernel vs plain, group by group, at log_h 16 (rates 0
      and 2, production plan) and at (9, 1) and (12, 0) with a forced
@@ -79,6 +79,8 @@ run with a non-zero exit and no result line:
      chain, kernel vs plain; apply from device words; the first group with
      and without its bit-reversing load; and the per-stage torch path (one
      plain group over all 24 stages) as the whole-transform plain figure;
+     then the 2^27 chain and each of its groups alone, each beside its
+     bound;
  16. qm31_kernels — the QM31 sumcheck round and fold kernels vs their plain
      versions at every live row count of num_vars 12 and 20;
  17. qm31_main — the fifth path: PrimeFieldSumcheck on 2 x 2^24 mt19937 QM31
@@ -405,7 +407,8 @@ def phase_build() -> None:
     say("build", f"nvcc {_build.build_info['seconds']:.1f} s "
         f"(load {wall:.1f} s); ptxas: {' | '.join(usage)}")
     for name in (SUMCHECK_KERNELS + BUTTERFLY_HIGH_KERNELS
-                 + BUTTERFLY_LOW_KERNELS + STAGE_GROUP32_KERNELS):
+                 + BUTTERFLY_LOW_KERNELS + STAGE_GROUP32_KERNELS
+                 + ("stage_group_r2_kernel",)):
         say("build", f"{name}: ptxas "
             f"{_build.kernel_usage(name) or 'not reported'}")
 
@@ -1125,6 +1128,21 @@ def phase_bb31_main(dev, sizes=(24, 27)):
     return launches, runs
 
 
+def bb31_bound(log_n: int, s0: int = 0, k: int | None = None) -> dict:
+    """Bound of the stages s0 .. s0+k-1 of a 2^log_n transform (all of
+    them by default): its butterflies (the top stage's without a product),
+    the encode in the first group and the decode in the last; the array
+    read and written once and the twiddles its stages use read once
+    (stage s0's n / 2^(s0+1), the others' a prefix of them)."""
+    k = log_n - s0 if k is None else k
+    n = 1 << log_n
+    top = s0 + k == log_n
+    ops = (n // 2 * ((k - top) * (2 * BB31_ADD_OPS + BB31_MUL_OPS)
+                     + top * 2 * BB31_ADD_OPS)
+           + n * BB31_MUL_OPS * ((s0 == 0) + top))
+    return bound(ops, 4 * n + 4 * n + 4 * (n >> (s0 + 1)), INSTR_OPS_PER_S)
+
+
 def phase_bb31_timing(dev, runs) -> dict:
     # the kernel against plain at every shape the main path gave it: the
     # plans of 2^24 and 2^27, on their own inputs
@@ -1152,21 +1170,40 @@ def phase_bb31_timing(dev, runs) -> dict:
         lambda: cfb.stage_group_r2_plain(
             out, tw, s0=0, k=log_n, log_n=log_n, encode_in=True,
             decode_out=True, src=x), warmup=1, reps=3) * 1e3
-    n = 1 << log_n
-    # 23 multiplying stages and the top one (no multiply), the encode and
-    # the decode; the input and the twiddles read, the output written
-    ops = (n // 2 * ((log_n - 1) * (2 * BB31_ADD_OPS + BB31_MUL_OPS)
-                     + 2 * BB31_ADD_OPS) + 2 * n * BB31_MUL_OPS)
-    b = bound(ops, 4 * n + 4 * n + 4 * (n // 2), INSTR_OPS_PER_S)
+    b = bb31_bound(log_n)
     say("bb31_timing", f"2^{log_n} plan {plan}: chain kernel {ms:.3f} ms, "
         f"plain {plain_ms:.3f} ms (bound {b['bound_ms']:.3f} ms by "
         f"{b['bound_by']}); apply from device words {apply_ms:.3f} ms; first "
         f"group {first['with']:.3f} ms with its bit-reversing load, "
         f"{first['without']:.3f} ms without; upper groups {groups_ms} ms; "
         f"per-stage torch path {per_stage_ms:.3f} ms")
+    del x, out
+    # the largest transform: its chain and each group alone, beside their
+    # bounds
+    log_big, ntt_big, words_big = runs[-1]
+    x = to_torch(words_big, dev)
+    out = torch.empty_like(x)
+    plan_big = cfb.plan_groups_r2(log_big)
+    big = {"log_n": log_big, "plan": plan_big,
+           "ms": device_time(bb31_groups, cfb.stage_group_r2, out, x,
+                             ntt_big.tw, log_big) * 1e3,
+           "bound_ms": bb31_bound(log_big)["bound_ms"],
+           "groups": [{"group": [s0, k], "ms": device_time(
+               lambda s0=s0, k=k, gi=gi: cfb.stage_group_r2(
+                   out, ntt_big.tw, s0=s0, k=k, log_n=log_big,
+                   encode_in=gi == 0, decode_out=gi == len(plan_big) - 1,
+                   src=x if gi == 0 else None)) * 1e3,
+               "bound_ms": bb31_bound(log_big, s0, k)["bound_ms"]}
+               for gi, (s0, k) in enumerate(plan_big)]}
+    say("bb31_timing", f"2^{log_big} plan {plan_big}: chain kernel "
+        f"{big['ms']:.3f} ms (bound {big['bound_ms']:.3f} ms); groups "
+        + ", ".join(f"{tuple(g['group'])} {g['ms']:.3f} ms (bound "
+                    f"{g['bound_ms']:.3f})" for g in big["groups"]))
+    del x, out
     return {"ms": ms, "plain_ms": plain_ms, "apply_ms": apply_ms,
             "first_group_ms": first, "upper_groups_ms": groups_ms,
-            "per_stage_ms": per_stage_ms, "max_abs_err": worst, **b}
+            "per_stage_ms": per_stage_ms, "max_abs_err": worst,
+            "largest": big, **b}
 
 
 def phase_qm31_kernels(dev, num_vars_list=(12, 20)) -> dict:
@@ -1815,6 +1852,7 @@ def main() -> int:
              "first_group_ms": r2_timing["first_group_ms"],
              "upper_groups_ms": r2_timing["upper_groups_ms"],
              "per_stage_plain_apply_ms": r2_timing["per_stage_ms"],
+             "largest": r2_timing["largest"],
              "bound_ms": r2_timing["bound_ms"],
              "bound_by": r2_timing["bound_by"],
              "library_ms": r2_timing["library_ms"]},

@@ -150,8 +150,11 @@ def test_port_plans_reach_the_golden(kb, ku, monkeypatch):
     assert cfb.stage_group_r2.launches == before
     assert _md5(out) == BB31_NTT_HASHES[log_n]
     for s0, k in cfb.plan_groups_r2(log_n):
-        lc = cfb.tile_columns(s0, k)
-        assert k + lc <= cfb.TILE_LOG and 0 <= lc <= s0
+        # an upper group's columns lie in its row block; the first group's
+        # are row blocks of their own
+        lc = cfb.tile_columns(s0, k, log_n)
+        assert k + lc <= cfb.TILE_LOG
+        assert 0 <= lc <= (s0 if s0 else cfb.GATHER_COLS_LOG)
 
 
 @pytest.mark.parametrize("log_n", [9, 10])

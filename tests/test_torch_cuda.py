@@ -25,6 +25,7 @@ from torch_stage_group_tables import random_group_tables
 from binius_ntt_tpu_torch import (AdditiveNTT, AdditiveNTT128, NTTRadix2,
                                   PrimeFieldSumcheck, Sumcheck, _build,
                                   tower_compact)
+from binius_ntt_tpu_torch.fields import baby_bear as bb
 from binius_ntt_tpu_torch.fields import tower_scalar
 from binius_ntt_tpu_torch.layout.bitslicing import (bitslice_transpose,
                                                     bitslice_untranspose)
@@ -457,6 +458,10 @@ def test_ntt32_wrappers_refuse_what_the_kernels_do_not_take(dev):
 @pytest.mark.parametrize("log_n,kb,ku", [
     (7, None, None), (11, None, None), (16, None, None), (7, 2, 2),
     (11, 3, 5), (16, 5, 3),
+    # tiles above 48 KB of shared memory, up to the largest (2^15 words);
+    # upper tiles of one-word rows, loaded word by word
+    (16, 14, 2), (17, 15, 2), (18, 13, 11), (20, 12, 12), (19, 9, 5),
+    (22, 12, 6), (9, 1, 3), (13, 1, 12),
 ])
 def test_stage_group_r2_kernel_matches_plain(dev, log_n, kb, ku,
                                              monkeypatch):
@@ -512,16 +517,37 @@ def test_bb31_small_sizes_launch_the_kernel(dev, log_n, use_fused):
 
 
 def test_bb31_wrapper_refuses_what_the_kernel_does_not_take(dev):
-    ntt = NTTRadix2(137, 27, 14, device=dev)
-    x = _rand(6, (1 << 14,), dev)
+    log_n = cfb.TILE_LOG + 1
+    ntt = NTTRadix2(137, 27, log_n, device=dev)
+    x = _rand(6, (1 << log_n,), dev)
     with pytest.raises(ValueError, match="at most"):
-        cfb.stage_group_r2(x, ntt.tw, s0=0, k=14, log_n=14)
+        cfb.stage_group_r2(x, ntt.tw, s0=0, k=cfb.TILE_LOG + 1, log_n=log_n)
     with pytest.raises(ValueError, match="tw"):
-        cfb.stage_group_r2(x, ntt.tw.cpu(), s0=0, k=12, log_n=14)
+        cfb.stage_group_r2(x, ntt.tw.cpu(), s0=0, k=12, log_n=log_n)
     with pytest.raises(ValueError, match="out of place"):
-        cfb.stage_group_r2(x, ntt.tw, s0=0, k=12, log_n=14, src=x)
+        cfb.stage_group_r2(x, ntt.tw, s0=0, k=12, log_n=log_n, src=x)
+    with pytest.raises(ValueError, match="16-byte"):
+        cfb.stage_group_r2(_rand(6, (1 + (1 << log_n),), dev)[1:], ntt.tw,
+                           s0=0, k=12, log_n=log_n)
     with pytest.raises(ValueError, match="int32 words on"):
-        ntt.apply(torch.zeros(1 << 14, dtype=torch.int32))
+        ntt.apply(torch.zeros(1 << log_n, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("s0", [0, 1])
+def test_stage_group_r2_takes_tile_log_stages(dev, s0):
+    """The largest group the kernel takes: TILE_LOG stages in one tile of
+    2^TILE_LOG words (192 KB of shared memory with its twiddles), as the
+    first group and above one stage."""
+    log_n = cfb.TILE_LOG + s0
+    ntt = NTTRadix2(137, 27, log_n, device=dev)
+    rng = np.random.default_rng(7)      # Montgomery words: canonical
+    x = to_torch(rng.integers(0, bb.P, 1 << log_n, dtype=np.uint32), dev)
+    got, want = x.clone(), x.clone()
+    cfb.stage_group_r2(got, ntt.tw, s0=s0, k=cfb.TILE_LOG, log_n=log_n)
+    cfb.stage_group_r2_plain(want, ntt.tw, s0=s0, k=cfb.TILE_LOG,
+                             log_n=log_n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("rows", [2, 4, 1 << 12, 1 << 16])
