@@ -367,14 +367,12 @@ extern "C" int bntt_stage_group_r2(void* x, const void* src, const void* tw,
                                               << (k - 1)
                                         : 0));
   if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        stage_group_r2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM_LIMIT);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attr_set = true;
-  }
+  // the limit belongs to the current device, so it is raised on every
+  // launch, as the other kernels that take more than 48 KB do
+  const cudaError_t err = cudaFuncSetAttribute(
+      stage_group_r2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_LIMIT);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = 1u << (log_n - K);
   stage_group_r2_kernel<<<blocks, threads, smem,
                           static_cast<cudaStream_t>(stream)>>>(

@@ -1,6 +1,7 @@
 // The GF(2^128) product as nine GF(2^32) leaf products, made in place in
 // shared memory.  Shared by csrc/sumcheck_round.cu (a product of two folded
-// columns) and csrc/sumcheck_fold.cu (a row by the challenge).
+// columns), csrc/sumcheck_fold.cu (a row by the challenge) and
+// csrc/mul_compact.cu (compact products, and their GF(2^64) case).
 //
 // The product is the two-level Karatsuba of tower::mul_body<7> -> <6> ->
 // <5>.  With a and b in 32-plane chunks a0 .. a3, a leaf multiplies the XOR
@@ -70,12 +71,18 @@ struct GatherLeaf {
 // to t (64 planes); z0 replaces chunks 0, 1 of a, which no later leaf
 // reads; z2 and the combine then give all four chunks.  leaf_b(l, y) puts
 // b's operand of leaf l (the XOR of its chunks in GROUPED[l]) in y.
-template <int STRIDE, class LeafB>
+//
+// H = 6 is a = a * b in GF(2^64) on chunks 0 and 1 (csrc/mul_compact.cu):
+// z0's three leaves alone (l = 3, 4, 5) are tower::mul_body<6> on those
+// chunks, and write the product over them; t is not used.
+template <int STRIDE, int H = 7, class LeafB>
 __device__ __forceinline__ void mul_in_place(uint32_t* a, const LeafB& leaf_b,
                                              uint32_t* t) {
+  static_assert(H == 6 || H == 7, "GF(2^64) or GF(2^128)");
+  constexpr int FIRST = H == 7 ? 0 : 3, LAST = H == 7 ? N_LEAF : 6;
   uint32_t r[2 * C32];
 #pragma unroll 1
-  for (int l = 0; l < N_LEAF; ++l) {
+  for (int l = FIRST; l < LAST; ++l) {
     const int g = l / 3, k = l % 3;
     uint32_t x[C32], y[C32], p[C32], p1[C32];
     gather<STRIDE>(a, GROUPED[l], x);

@@ -12,9 +12,12 @@ Port of binius_ntt_tpu/fields/tower_compact.py:
 ``mul_compact`` and ``multiply_alpha_compact`` are plain torch over limb
 lists.  ``mul_compact_tiles`` is the kernel entry point on (N, L) int32
 tensors: a CPU tensor runs ``mul_compact``, a CUDA tensor launches the
-kernel of csrc/mul_compact.cu (one thread per element, limbs in registers)
-or raises.  Nothing falls back.  The reference's structure-of-arrays
-transpose (``a.T``) serves the TPU's lane tiling and is not ported.
+kernel of csrc/mul_compact.cu or raises.  Nothing falls back.  The kernel
+works in the bit-sliced form: 32 elements a thread, each limb transposed
+into 32 planes, the product as GF(2^32) leaves, and back
+(tests/test_torch_mul_compact_sliced.py models it in torch).  The
+reference's structure-of-arrays transpose (``a.T``) serves the TPU's lane
+tiling and is not ported.
 """
 
 from __future__ import annotations
@@ -101,7 +104,9 @@ def _check_tiles(a: torch.Tensor, b: torch.Tensor, height: int) -> None:
 def mul_compact_tiles(a: torch.Tensor, b: torch.Tensor,
                       height: int = 7) -> torch.Tensor:
     """out[n] = a[n] * b[n] for (N, 2^(height-5)) int32 limb tensors,
-    height 5, 6 or 7."""
+    height 5, 6 or 7.  On the card, a and b must start on a whole element;
+    the kernel moves 16-byte vectors, so an operand that does not start on
+    16 bytes is copied first."""
     _check_tiles(a, b, height)
     if a.device.type == "cpu":
         return mul_compact(a, b, height)
@@ -111,6 +116,7 @@ def mul_compact_tiles(a: torch.Tensor, b: torch.Tensor,
         if not t.is_contiguous() or t.data_ptr() % (4 * t.shape[1]):
             raise ValueError(f"mul_compact_tiles: {name} must be contiguous "
                              f"and aligned to a whole element")
+    a, b = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (a, b))
     out = torch.empty_like(a)
     lib = _build.library()
     with torch.cuda.device(a.device):

@@ -378,13 +378,17 @@ def bitslice_lane_groups(x: torch.Tensor) -> torch.Tensor:
     (R, 128) int32 rows: compact GF(2^32) words <-> the packed bit-sliced
     layout (its own inverse).  Returns a new tensor; x is left as it is.
     A CPU tensor runs :func:`bitslice_lane_groups_plain`; a CUDA tensor
-    launches the kernel of csrc/bitslice_lane_groups.cu or raises."""
+    launches the kernel of csrc/bitslice_lane_groups.cu or raises.  The
+    kernel moves 16-byte vectors: a view that does not start on 16 bytes is
+    copied first."""
     if x.device.type == "cpu":
         return bitslice_lane_groups_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"bitslice_lane_groups: unsupported device "
                          f"{x.device}")
     _check_rows(x)
+    if x.data_ptr() % 16:
+        x = x.clone()
     out = torch.empty_like(x)
     lib = _build.library()
     with torch.cuda.device(x.device):

@@ -10,9 +10,10 @@ run with a non-zero exit and no result line:
   1. device   — a CUDA device of capability (9, 0), its name and power limit;
   2. build    — the kernels of binius_ntt_tpu_torch/csrc built by nvcc,
      then the stack frame, spills and registers of the sumcheck kernels,
-     of every butterfly_high_kernel, butterfly_low_kernel and
-     stage_group32_kernel instantiation and of stage_group_r2_kernel as
-     ptxas reports them, a line each;
+     of every butterfly_high_kernel, butterfly_low_kernel,
+     stage_group32_kernel and mul_compact_kernel instantiation and of
+     stage_group_r2_kernel and bitslice_lane_groups_kernel as ptxas
+     reports them, a line each;
   3. mul_tiles   — kernel vs its plain torch version on the card, 2^18 rows;
   4. stage_group — kernel vs plain, group by group, at log_h 16 (rates 0
      and 2, production plan) and at (9, 1) and (12, 0) with a forced
@@ -60,8 +61,10 @@ run with a non-zero exit and no result line:
      path's shapes (the lane-group transpose on the 2^17 input rows and on
      the cosets * 2^17 output rows, stage_group32 group by group); then,
      with CUDA events, the stage-group chain, kernel vs plain, and each
-     group alone, at r = 0 and 2; the lane-group transpose, kernel vs
-     plain; apply at r = 0 and 2;
+     group alone, at r = 0 and 2; apply at r = 0 and 2; the lane-group
+     transpose alone on 2^17 and 2^19 random rows (the input's and the
+     rate-2 output's), each held word-equal to plain, then kernel vs plain
+     timed, with its share of the bound;
      and the compact torch path (use_fused=False) as the whole-transform
      plain figure;
  13. bb31_kernels — the BB31 NTT's stage_group_r2 vs its plain version group
@@ -126,7 +129,7 @@ run with a non-zero exit and no result line:
      reset just before and read just after), each word-equal to
      mul_compact on the card and held on 4096 sampled products to the
      scalar oracle, the reference's 128-bit vector, then kernel vs plain
-     timed with CUDA events.
+     timed with CUDA events, with the kernel's share of the bound.
 
 Then three lines: the kernels as JSON, the card's name and power limit
 from nvidia-smi, and the result line
@@ -218,6 +221,9 @@ BUTTERFLY_HIGH_KERNELS = ("butterfly_high_kernelILb1E",
 # and of stage_group32_kernel<LOW>: the upper groups', the bottom group's
 STAGE_GROUP32_KERNELS = ("stage_group32_kernelILb0E",
                          "stage_group32_kernelILb1E")
+# and of mul_compact_kernel<H> (ILi7E: <7>), and the lane-group transpose
+MUL_COMPACT_KERNELS = tuple(f"mul_compact_kernelILi{h}E" for h in (5, 6, 7))
+LANES_KERNEL = "bitslice_lane_groups_kernel"
 
 # The card's peaks for bound_ms (data-sheet estimates at 1.98 GHz): integer
 # logic on the int32 pipe (132 SMs x 64 lanes), the rate of the GF(2)
@@ -317,6 +323,16 @@ def sumcheck_bounds(comp: int, batches: int) -> dict:
                       comp * batches * W * 4 + comp * batches // 2 * W * 4)}
 
 
+def run_time(fn, *args, calls: int = 10) -> float:
+    """Seconds a call of fn(*args) in a run of ``calls`` back to back: the
+    host's share of a short launch (the wrapper between the events of a
+    single call) is hidden behind the calls before it."""
+    def run():
+        for _ in range(calls):
+            fn(*args)
+    return device_time(run) / calls
+
+
 def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
@@ -408,7 +424,8 @@ def phase_build() -> None:
         f"(load {wall:.1f} s); ptxas: {' | '.join(usage)}")
     for name in (SUMCHECK_KERNELS + BUTTERFLY_HIGH_KERNELS
                  + BUTTERFLY_LOW_KERNELS + STAGE_GROUP32_KERNELS
-                 + ("stage_group_r2_kernel",)):
+                 + ("stage_group_r2_kernel", LANES_KERNEL)
+                 + MUL_COMPACT_KERNELS):
         say("build", f"{name}: ptxas "
             f"{_build.kernel_usage(name) or 'not reported'}")
 
@@ -1002,20 +1019,40 @@ def phase_ntt32_timing(dev, runs) -> dict:
             f"{plain_ms:.3f} ms (peak {peak / 2**30:.1f} GiB); apply from "
             f"device words {apply_ms:.3f} ms")
 
+    # the transpose alone on the input's 2^17 rows and on the rate-2
+    # output's 2^19, each held to its plain version first
     rng = np.random.default_rng(SEED + 33)
-    x = to_torch(rng.integers(0, 1 << 32, (1 << 17, W), dtype=np.uint32),
-                 dev)
-    out["lanes"] = {
-        "ms": device_time(cf32.bitslice_lane_groups, x) * 1e3,
-        "plain_ms": device_time(cf32.bitslice_lane_groups_plain, x, warmup=1,
-                                reps=3) * 1e3}
+    out["lanes"] = {}
+    for log_rows in (17, 19):
+        x = to_torch(rng.integers(0, 1 << 32, (1 << log_rows, W),
+                                  dtype=np.uint32), dev)
+        plain = cf32.bitslice_lane_groups_plain(x)
+        err = max_abs_err(cf32.bitslice_lane_groups(x), plain)
+        require(err == 0, f"bitslice_lane_groups on 2^{log_rows} random rows "
+                f"differs from plain ({err})")
+        del plain
+        out["err"]["bitslice_lane_groups"] = max(
+            out["err"].get("bitslice_lane_groups", 0), err)
+        lanes = {"ms": device_time(cf32.bitslice_lane_groups, x) * 1e3,
+                 "run_ms": run_time(cf32.bitslice_lane_groups, x) * 1e3,
+                 "plain_ms": device_time(cf32.bitslice_lane_groups_plain, x,
+                                         warmup=1, reps=3) * 1e3,
+                 **bound(x.numel() * TRANSPOSE32_OPS / 32,
+                         2 * x.numel() * 4)}
+        out["lanes"][log_rows] = lanes
+        say("ntt32_timing", f"bitslice_lane_groups on 2^{log_rows} rows "
+            f"({x.numel() * 4 >> 20} MB) word-equal to plain (max_abs_err "
+            f"0, tolerance exact): kernel {lanes['ms']:.4f} ms a call, "
+            f"{lanes['run_ms']:.4f} ms a call back to back, plain "
+            f"{lanes['plain_ms']:.3f} ms, bound {lanes['bound_ms']:.4f} ms "
+            f"by {lanes['bound_by']} ({lanes['bound_ms'] / lanes['ms']:.0%} "
+            f"and {lanes['bound_ms'] / lanes['run_ms']:.0%} of it)")
+        del x
     compact = AdditiveNTT(24, 0, use_fused=False, device=dev)
     out["compact_ms"] = device_time(compact.apply, to_torch(runs[0][2], dev),
                                     warmup=1, reps=3) * 1e3
-    say("ntt32_timing", f"bitslice_lane_groups on 2^17 rows (64 MB): kernel "
-        f"{out['lanes']['ms']:.3f} ms, plain {out['lanes']['plain_ms']:.3f} "
-        f"ms; compact torch path AdditiveNTT(24, 0, use_fused=False).apply "
-        f"{out['compact_ms']:.3f} ms")
+    say("ntt32_timing", f"compact torch path AdditiveNTT(24, 0, "
+        f"use_fused=False).apply {out['compact_ms']:.3f} ms")
     return out
 
 
@@ -1643,19 +1680,22 @@ def phase_compact_mul(dev, n=1 << 24) -> dict:
             require(z == ts.multiply(x, y, h), f"mul_compact_tiles at "
                     f"height {h} differs from the scalar oracle")
         ms = device_time(tc.mul_compact_tiles, a, b, h) * 1e3
+        run_ms = run_time(tc.mul_compact_tiles, a, b, h) * 1e3
         plain_ms = device_time(tc.mul_compact, a, b, h, warmup=1,
                                reps=3) * 1e3
         # the bit-sliced multiply and the transposes of a, b and the
         # product (nl words an element each), per element
         per = tower_mul_ops(h) / 32 + 3 * nl * TRANSPOSE32_OPS / 32
-        out[h] = {"ms": ms, "plain_ms": plain_ms,
+        out[h] = {"ms": ms, "run_ms": run_ms, "plain_ms": plain_ms,
                   **bound(n * per, 3 * n * nl * 4)}
         say("compact_mul", f"height {h}, {n} elements of {nl} limbs: "
             f"word-equal to mul_compact (max_abs_err 0, tolerance exact), "
             f"4096 sampled products equal the scalar oracle; kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{ms:.3f} ms ({run_ms:.3f} ms a call back to back), plain "
+            f"{plain_ms:.3f} ms, bound "
             f"{out[h]['bound_ms']:.3f} ms by {out[h]['bound_by']} "
-            f"({per:.1f} operations a product in the bit-sliced form)")
+            f"({per:.1f} operations a product in the bit-sliced form; "
+            f"{out[h]['bound_ms'] / ms:.0%} of it)")
     del ops, outs
     a = 0x0123456789ABCDEF0011223344556677
     b = 0xFEDCBA9876543210AABBCCDDEEFF0099
@@ -1726,9 +1766,6 @@ def main() -> int:
     mul_rows = 1 << 18
     mul.update(bound(mul_rows * MUL128_OPS, 3 * mul_rows * W * 4))
     sc_bounds = {c: sumcheck_bounds(c, batches) for c in COMPS}
-    lane_rows = 1 << 17
-    lanes_bound = bound(lane_rows * 4 * TRANSPOSE32_OPS,
-                        2 * lane_rows * W * 4)
     # rate r: 2^r cosets of 2^24 points, 2^(18+r) products a live stage
     sg32_bounds = {r: bound(
         live_stages(tabs["zero"] for *_, tabs in ntt.tables)
@@ -1820,10 +1857,10 @@ def main() -> int:
              "launches": n32_launches["bitslice_lane_groups"],
              "max_abs_err": max(n32_err["bitslice_lane_groups"],
                                 n32_timing["err"]["bitslice_lane_groups"]),
-             "ms": n32_timing["lanes"]["ms"],
-             "plain_ms": n32_timing["lanes"]["plain_ms"],
-             "shape": "2^17 rows of 128 words (2^24 compact words)",
-             **lanes_bound},
+             "shape": "2^17 rows of 128 words (2^24 compact words); "
+                      "by_rows has 2^19 rows too",
+             "by_rows": {f"2^{k}": v for k, v in n32_timing["lanes"].items()},
+             **n32_timing["lanes"][17]},
             {"name": "stage_group32", "route": "cuda",
              "source": "binius_ntt_tpu_torch/csrc/stage_group32.cu",
              "replaces": "binius_ntt_tpu/ntt/pallas_fused32.py:400",

@@ -312,7 +312,7 @@ def _md5(t) -> str:
     return hashlib.md5(to_numpy(t).astype("<u4").tobytes()).hexdigest()
 
 
-@pytest.mark.parametrize("rows", [1, 3, 1 << 12])
+@pytest.mark.parametrize("rows", [1, 3, 5, (1 << 12) + 1, 1 << 17])
 def test_bitslice_lane_groups_kernel_matches_plain(dev, rows):
     x = _rand(4, (rows, 128), dev)
     before = cf32.bitslice_lane_groups.launches
@@ -752,7 +752,7 @@ def test_butterfly_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 
 @pytest.mark.parametrize("height", [5, 6, 7])
-@pytest.mark.parametrize("n", [1, 1000, 1 << 16])
+@pytest.mark.parametrize("n", [1, 31, 33, 1000, 1 << 16, (1 << 20) + 7])
 def test_mul_compact_tiles_kernel_matches_plain(dev, height, n):
     nl = 1 << (height - 5)
     a, b = _rand(11, (n, nl), dev), _rand(12, (n, nl), dev)
@@ -766,6 +766,21 @@ def test_mul_compact_tiles_kernel_matches_plain(dev, height, n):
         ai, bi, zi = (int.from_bytes(w[i].astype("<u4").tobytes(), "little")
                       for w in (ga, gb, gz))
         assert zi == tower_scalar.multiply(ai, bi, height)
+
+
+def test_kernels_take_views_that_do_not_start_on_16_bytes(dev):
+    """Both kernels move 16-byte vectors; their wrappers copy a view that
+    starts between (at a whole word, or at a whole element)."""
+    flat = _rand(14, (1 + 3 * 128,), dev)
+    rows = flat[1:].view(3, 128)
+    assert torch.equal(cf32.bitslice_lane_groups(rows),
+                       cf32.bitslice_lane_groups_plain(rows))
+    for height in (5, 6):
+        nl = 1 << (height - 5)
+        a, b = _rand(15, (66, nl), dev), _rand(16, (66, nl), dev)
+        got = tower_compact.mul_compact_tiles(a[1:], b[1:], height)
+        assert torch.equal(got, tower_compact.mul_compact(a[1:], b[1:],
+                                                          height))
 
 
 def test_mul_compact_tiles_refuses_what_the_kernel_does_not_take(dev):

@@ -22,19 +22,16 @@ limit.  Imports no JAX.
 
 from __future__ import annotations
 
-import importlib.util
 import json
 import os
-import re
-import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import torch
 
 sys.path.insert(0, os.getcwd())
 
+from ab_common import card, ptxas_usage  # noqa: E402
 from binius_ntt_tpu_torch import AdditiveNTT128, _build  # noqa: E402
 from binius_ntt_tpu_torch.ntt import cuda_kernels as ck  # noqa: E402
 from binius_ntt_tpu_torch.utils.benchlib import device_time  # noqa: E402
@@ -43,25 +40,6 @@ from binius_ntt_tpu_torch.utils.bits import to_torch  # noqa: E402
 SEED = 0xB0F1
 LOG_H = 24
 W = 128
-
-
-def own_kernel_usage():
-    """kernel_usage from the _build.py beside this script."""
-    path = Path(__file__).resolve().parents[1] / "binius_ntt_tpu_torch"
-    spec = importlib.util.spec_from_file_location("own_build",
-                                                  path / "_build.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.kernel_usage
-
-
-def butterfly_entries(log: str) -> list[str]:
-    """The mangled names of the butterfly_high_kernel and
-    butterfly_low_kernel instantiations that ptxas compiled, in the log's
-    order."""
-    return list(dict.fromkeys(re.findall(
-        r"Compiling entry function '(\w*butterfly_(?:high|low)_kernel\w*)'",
-        log)))
 
 
 def route(args) -> str:
@@ -121,16 +99,8 @@ def main() -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    _build.library()
-    kernel_usage = own_kernel_usage()
-    log = _build.build_info["log"]
-    usage = {name: kernel_usage(name, log)
-             for name in butterfly_entries(log)}
-    for name, line in usage.items():
-        print(f"[ptxas] {name}: {line or 'not reported'}", flush=True)
+    smi = card()
+    usage = ptxas_usage(_build, r"butterfly_(?:high|low)_kernel")
     out = {"checkout": os.getcwd(), "card": smi, "ptxas": usage}
     rng = np.random.default_rng(SEED)
     out["held_small_stages"] = check_small(dev, rng)

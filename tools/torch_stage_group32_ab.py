@@ -24,19 +24,17 @@ card's name and power limit.  Imports no JAX.
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import os
 import re
-import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import torch
 
 sys.path.insert(0, os.getcwd())
 
+from ab_common import card, ptxas_usage  # noqa: E402
 from binius_ntt_tpu_torch import AdditiveNTT, _build  # noqa: E402
 from binius_ntt_tpu_torch.ntt import cuda_fused32 as cf32  # noqa: E402
 from binius_ntt_tpu_torch.utils.benchlib import device_time  # noqa: E402
@@ -50,23 +48,6 @@ SM_REGS = 65536
 SM_SMEM = 228 * 1024
 SMEM_RESERVED = 1024
 MAX_THREADS = 256
-
-
-def own_kernel_usage():
-    """kernel_usage from the _build.py beside this script."""
-    path = Path(__file__).resolve().parents[1] / "binius_ntt_tpu_torch"
-    spec = importlib.util.spec_from_file_location("own_build",
-                                                  path / "_build.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.kernel_usage
-
-
-def kernel_entries(log: str) -> list[str]:
-    """The mangled names of the stage_group32_kernel entries that ptxas
-    compiled, in the log's order."""
-    return list(dict.fromkeys(re.findall(
-        r"Compiling entry function '(\w*stage_group32_kernel\w*)'", log)))
 
 
 def registers(line: str) -> int | None:
@@ -155,15 +136,8 @@ def main() -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    _build.library()
-    kernel_usage = own_kernel_usage()
-    log = _build.build_info["log"]
-    usage = {name: kernel_usage(name, log) for name in kernel_entries(log)}
-    for name, line in usage.items():
-        print(f"[ptxas] {name}: {line or 'not reported'}", flush=True)
+    smi = card()
+    usage = ptxas_usage(_build, "stage_group32_kernel")
     # the shared-memory design's two entries: <false> upper, <true> bottom
     regs = None
     if any("stage_group32_kernelILb" in n for n in usage):

@@ -28,41 +28,22 @@ traffic).
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import os
-import re
-import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import torch
 
 sys.path.insert(0, os.getcwd())
 
+from ab_common import card, ptxas_usage  # noqa: E402
 from binius_ntt_tpu_torch import NTTRadix2, _build  # noqa: E402
 from binius_ntt_tpu_torch.ntt import cuda_fused_bb31 as cfb  # noqa: E402
 from binius_ntt_tpu_torch.utils.benchlib import device_time  # noqa: E402
 from binius_ntt_tpu_torch.utils.bits import to_torch  # noqa: E402
 
 SEED = 0xB331
-
-
-def own_kernel_usage():
-    """kernel_usage from the _build.py beside this script."""
-    path = Path(__file__).resolve().parents[1] / "binius_ntt_tpu_torch"
-    spec = importlib.util.spec_from_file_location("own_build",
-                                                  path / "_build.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.kernel_usage
-
-
-def kernel_entries(log: str) -> list[str]:
-    """The mangled names of the stage_group_r2 entries ptxas compiled."""
-    return list(dict.fromkeys(re.findall(
-        r"Compiling entry function '(\w*stage_group_r2\w*)'", log)))
 
 
 def settings(plan: str) -> dict:
@@ -129,15 +110,8 @@ def main() -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    _build.library()
-    kernel_usage = own_kernel_usage()
-    log = _build.build_info["log"]
-    usage = {name: kernel_usage(name, log) for name in kernel_entries(log)}
-    for name, line in usage.items():
-        print(f"[ptxas] {name}: {line or 'not reported'}", flush=True)
+    smi = card()
+    usage = ptxas_usage(_build, "stage_group_r2")
     out = {"checkout": os.getcwd(), "card": smi, "ptxas": usage}
     defaults = {name: getattr(cfb, name) for plan in args.plans
                 for name in settings(plan)}

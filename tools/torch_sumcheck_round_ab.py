@@ -22,18 +22,16 @@ limit.  Imports no JAX.
 
 from __future__ import annotations
 
-import importlib.util
 import json
 import os
-import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import torch
 
 sys.path.insert(0, os.getcwd())
 
+from ab_common import card, ptxas_usage  # noqa: E402
 from binius_ntt_tpu_torch import _build  # noqa: E402
 from binius_ntt_tpu_torch.sumcheck import cuda_round as cr  # noqa: E402
 from binius_ntt_tpu_torch.utils.benchlib import device_time  # noqa: E402
@@ -42,21 +40,6 @@ from binius_ntt_tpu_torch.utils.bits import to_torch  # noqa: E402
 COMPS = (2, 3, 4)
 SEED = 0x5C0024
 LOG_N = 24
-# ptxas's entry names: the kernel's name and, for a template, the start of
-# its mangled arguments (ILb0E: <false>, the row fold; ILb1E: in-word)
-KERNELS = {"round": "sumcheck_round_kernel",
-           "fold": "sumcheck_fold_kernelILb0E",
-           "fold_in_word": "sumcheck_fold_kernelILb1E"}
-
-
-def own_kernel_usage():
-    """kernel_usage from the _build.py beside this script."""
-    path = Path(__file__).resolve().parents[1] / "binius_ntt_tpu_torch"
-    spec = importlib.util.spec_from_file_location("own_build",
-                                                  path / "_build.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.kernel_usage
 
 
 def words(rng, shape, dev) -> torch.Tensor:
@@ -97,15 +80,8 @@ def main() -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    _build.library()
-    kernel_usage = own_kernel_usage()
-    usage = {kind: kernel_usage(name, _build.build_info["log"])
-             for kind, name in KERNELS.items()}
-    for kind, name in KERNELS.items():
-        print(f"[ptxas] {name}: {usage[kind]}", flush=True)
+    smi = card()
+    usage = ptxas_usage(_build, "sumcheck_(?:round|fold)_kernel")
     out = {"checkout": os.getcwd(), "card": smi, "ptxas": usage}
     rng = np.random.default_rng(SEED)
     b = (1 << LOG_N) // 32
