@@ -16,9 +16,9 @@ Port of binius_ntt_tpu/ntt/pallas_kernels.py:
     GF(2^32) chunk products a row pair (at a low stage the u lanes of two
     rows packed into one word), else one GF(2^128) product a row pair or
     row.
-  * ``mul_tiles`` (csrc/mul_tiles.cu): the per-thread straight-line circuit
-    of csrc/tower_mul.cuh, the device multiply the other GF(2^128) kernels
-    inline too, as an entry point of its own.
+  * ``mul_tiles`` (csrc/mul_tiles.cu): the standalone GF(2^128) multiply,
+    as the nine GF(2^32) leaves of csrc/tower_leaf32.cuh spread over the
+    warps of persistent blocks that walk prefetched tiles of 32 rows.
 
 The plain versions are the reference's jnp branch
 (additive_bitsliced.py:239-244, 260-265) in torch over
@@ -244,7 +244,9 @@ def _check_rows(name: str, t: torch.Tensor, device: torch.device) -> None:
 
 
 def mul_tiles(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """out[n] = a[n] * b[n] for (N, 128) int32 bit-sliced rows."""
+    """out[n] = a[n] * b[n] for (N, 128) int32 bit-sliced rows.  On the
+    card the kernel moves 16-byte vectors, so an operand that does not
+    start on 16 bytes is copied first."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return mul_tiles_plain(a, b)
     if a.device.type != "cuda":
@@ -254,6 +256,7 @@ def mul_tiles(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.shape != b.shape:
         raise ValueError(f"mul_tiles: shapes {tuple(a.shape)} and "
                          f"{tuple(b.shape)} differ")
+    a, b = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (a, b))
     out = torch.empty_like(a)
     lib = _build.library()
     with torch.cuda.device(a.device):

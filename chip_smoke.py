@@ -12,9 +12,12 @@ run with a non-zero exit and no result line:
      then the stack frame, spills and registers of the sumcheck kernels,
      of every butterfly_high_kernel, butterfly_low_kernel,
      stage_group32_kernel and mul_compact_kernel instantiation and of
-     stage_group_r2_kernel and bitslice_lane_groups_kernel as ptxas
-     reports them, a line each;
-  3. mul_tiles   — kernel vs its plain torch version on the card, 2^18 rows;
+     stage_group_r2_kernel, bitslice_lane_groups_kernel and
+     mul_tiles_kernel as ptxas reports them, a line each;
+  3. mul_tiles   — kernel vs its plain torch version on the card at 2^18 + 5
+     rows (a partial last tile), 2^18 and 2^19 rows, word-equal; then the
+     last two timed with CUDA events (one call, and a call in a run of 10
+     back to back) beside the plain version and the bound;
   4. stage_group — kernel vs plain, group by group, at log_h 16 (rates 0
      and 2, production plan) and at (9, 1) and (12, 0) with a forced
      multi-group plan (KB = KU = PT = 2), all on the CHUNK32 route; then
@@ -224,6 +227,7 @@ STAGE_GROUP32_KERNELS = ("stage_group32_kernelILb0E",
 # and of mul_compact_kernel<H> (ILi7E: <7>), and the lane-group transpose
 MUL_COMPACT_KERNELS = tuple(f"mul_compact_kernelILi{h}E" for h in (5, 6, 7))
 LANES_KERNEL = "bitslice_lane_groups_kernel"
+MUL_TILES_KERNEL = "mul_tiles_kernel"
 
 # The card's peaks for bound_ms (data-sheet estimates at 1.98 GHz): integer
 # logic on the int32 pipe (132 SMs x 64 lanes), the rate of the GF(2)
@@ -425,29 +429,56 @@ def phase_build() -> None:
     for name in (SUMCHECK_KERNELS + BUTTERFLY_HIGH_KERNELS
                  + BUTTERFLY_LOW_KERNELS + STAGE_GROUP32_KERNELS
                  + ("stage_group_r2_kernel", LANES_KERNEL)
-                 + MUL_COMPACT_KERNELS):
+                 + MUL_COMPACT_KERNELS + (MUL_TILES_KERNEL,)):
         say("build", f"{name}: ptxas "
             f"{_build.kernel_usage(name) or 'not reported'}")
 
 
 def phase_mul_tiles(dev) -> dict:
-    rows = 1 << 18
+    """mul_tiles vs its plain version at 2^18 + 5 rows (a partial last
+    tile) and at the timed 2^18 and 2^19 rows, then each timed size with
+    CUDA events (one call, and a call in a run of 10 back to back) beside
+    the plain version and its bound."""
     rng = np.random.default_rng(SEED)
-    a = to_torch(rng.integers(0, 1 << 32, (rows, W), dtype=np.uint32), dev)
-    b = to_torch(rng.integers(0, 1 << 32, (rows, W), dtype=np.uint32), dev)
-    got = ck.mul_tiles(a, b)
-    want = ck.mul_tiles_plain(a, b)
-    torch.cuda.synchronize()
-    err = max_abs_err(got, want)
-    require(err == 0, f"mul_tiles differs from its plain version ({err})")
-    ms = device_time(ck.mul_tiles, a, b) * 1e3
-    plain_ms = device_time(ck.mul_tiles_plain, a, b, warmup=1, reps=3) * 1e3
-    say("mul_tiles", f"{rows} rows word-equal to plain (max_abs_err {err}, "
-        f"tolerance exact); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    worst, by_rows = 0, {}
+    for rows in ((1 << 18) + 5, 1 << 18, 1 << 19):
+        a, b = (to_torch(rng.integers(0, 1 << 32, (rows, W), dtype=np.uint32),
+                         dev) for _ in range(2))
+        got = ck.mul_tiles(a, b)
+        want = ck.mul_tiles_plain(a, b)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        require(err == 0, f"mul_tiles differs from its plain version on "
+                f"{rows} rows ({err})")
+        worst = max(worst, err)
+        del got, want
+        if rows & (rows - 1):           # the tail size: checked, not timed
+            say("mul_tiles", f"{rows} rows word-equal to plain (max_abs_err "
+                f"{err}, tolerance exact)")
+            continue
+        ms = device_time(ck.mul_tiles, a, b) * 1e3
+        run_ms = run_time(ck.mul_tiles, a, b) * 1e3
+        plain_ms = device_time(ck.mul_tiles_plain, a, b, warmup=1,
+                               reps=3) * 1e3
+        t = {"ms": ms, "run_ms": run_ms, "plain_ms": plain_ms,
+             **bound(rows * MUL128_OPS, 3 * rows * W * 4)}
+        by_rows[f"2^{rows.bit_length() - 1}"] = t
+        say("mul_tiles", f"{rows} rows word-equal to plain (max_abs_err "
+            f"{err}, tolerance exact); kernel {ms:.3f} ms ({run_ms:.3f} ms "
+            f"a call back to back), plain {plain_ms:.3f} ms, bound "
+            f"{t['bound_ms']:.3f} ms by {t['bound_by']} "
+            f"({t['bound_ms'] / ms:.0%} of it)")
+        del a, b
     return {"name": "mul_tiles", "route": "cuda",
             "source": "binius_ntt_tpu_torch/csrc/mul_tiles.cu",
             "replaces": "binius_ntt_tpu/ntt/pallas_kernels.py:200",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": worst,
+            "shape": "2^18 rows of 128 words (2^23 products); by_rows has "
+                     "2^19 rows too",
+            "by_rows": by_rows,
+            **{k: by_rows["2^18"][k] for k in ("ms", "run_ms", "plain_ms",
+                                               "bound_ms", "bound_by",
+                                               "library_ms")}}
 
 
 def _groups_vs_plain(x, tables, where: str):
@@ -1763,8 +1794,6 @@ def main() -> int:
         return sum(not z for flags in zero_flags for z in flags)
 
     n24, batches = 1 << 24, (1 << 24) // 32
-    mul_rows = 1 << 18
-    mul.update(bound(mul_rows * MUL128_OPS, 3 * mul_rows * W * 4))
     sc_bounds = {c: sumcheck_bounds(c, batches) for c in COMPS}
     # rate r: 2^r cosets of 2^24 points, 2^(18+r) products a live stage
     sg32_bounds = {r: bound(

@@ -60,7 +60,8 @@ def _rand(seed, shape, device):
     return to_torch(rng.integers(0, 1 << 32, shape, dtype=np.uint32), device)
 
 
-@pytest.mark.parametrize("rows", [1, 127, 1 << 12])
+@pytest.mark.parametrize("rows", [1, 31, 32, 33, 127, 1 << 12,
+                                  (1 << 15) + 5, 1 << 18])
 def test_mul_tiles_kernel_matches_plain(dev, rows):
     a, b = _rand(1, (rows, 128), dev), _rand(2, (rows, 128), dev)
     before = ck.mul_tiles.launches
@@ -68,6 +69,38 @@ def test_mul_tiles_kernel_matches_plain(dev, rows):
     torch.cuda.synchronize()
     assert ck.mul_tiles.launches == before + 1
     assert torch.equal(got, ck.mul_tiles_plain(a, b))
+
+
+def test_mul_tiles_takes_rows_that_do_not_start_on_16_bytes(dev):
+    """A contiguous (N, 128) view one word into a flat buffer passes every
+    shape check; the wrapper copies it before the kernel's 16-byte loads."""
+    flat_a, flat_b = _rand(4, (1 + 40 * 128,), dev), _rand(5, (40 * 128,), dev)
+    a = flat_a[1:].view(40, 128)
+    assert a.is_contiguous() and a.data_ptr() % 16 == 4
+    b = flat_b.view(40, 128)
+    got = ck.mul_tiles(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ck.mul_tiles_plain(a, b))
+    assert torch.equal(ck.mul_tiles(b, a), ck.mul_tiles_plain(b, a))
+
+
+def test_mul_tiles_entry_refuses_a_pointer_off_16_bytes(dev):
+    a = _rand(6, (2 * 128 + 4,), dev)
+    out = torch.zeros(2 * 128 + 4, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = _build.library()
+    for pa, pz in ((a.data_ptr() + 4, out.data_ptr()),
+                   (a.data_ptr(), out.data_ptr() + 8)):
+        rc = lib.bntt_mul_tiles(pa, a.data_ptr(), pz, 2, stream)
+        torch.cuda.synchronize()
+        assert rc == 1                  # cudaErrorInvalidValue
+    assert not out.any()
+    assert lib.bntt_mul_tiles(a.data_ptr(), a.data_ptr(), out.data_ptr(), 2,
+                              stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out[:256].view(2, 128),
+                       ck.mul_tiles_plain(a[:256].view(2, 128),
+                                          a[:256].view(2, 128)))
 
 
 def test_mul_tiles_refuses_what_the_kernel_does_not_take(dev):
