@@ -35,7 +35,7 @@ _U = ctypes.c_uint32
 _SIGNATURES = {
     # name: argtypes (pointers and the stream as c_void_p)
     "bntt_mul_tiles": (_P, _P, _P, _L, _P),
-    "bntt_stage_group": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "bntt_stage_group": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "bntt_sumcheck_round": (_P, _P, _I, _L, _L, _I, _P, _P),
     "bntt_sumcheck_fold": (_P, _I, _L, _L, _I, _U, _U, _U, _U, _P),
     "bntt_bitslice_lane_groups": (_P, _P, _L, _P),

@@ -15,7 +15,12 @@ port's, so a protocol begun in JAX can finish in the port.  The prime-field
 paths: ``radix2_twiddles_from_jax`` takes the bit-reversed Montgomery
 twiddle table of a JAX ``NTTRadix2`` (its ``_tw_mont``), and
 ``prime_sumcheck_state_from_jax`` the dict of a JAX
-``PrimeFieldSumcheck.state_dict()``.  This module imports no JAX: each
+``PrimeFieldSumcheck.state_dict()``.  The sharded paths:
+``sharded_tables_from_jax`` takes the JAX ``build_tables_sharded``
+output, and ``sharded_sumcheck_state_from_jax`` /
+``sharded_prime_sumcheck_state_from_jax`` the dicts of the JAX
+``ShardedSumcheck`` / ``ShardedPrimeFieldSumcheck.state_dict()``, which
+resume on a port mesh of any size.  This module imports no JAX: each
 array goes through ``np.asarray``.
 """
 
@@ -28,7 +33,9 @@ from .utils.bits import to_torch
 
 __all__ = ["tables_from_jax", "tables32_from_jax", "per_stage_tables_from_jax",
            "sumcheck_state_from_jax", "radix2_twiddles_from_jax",
-           "prime_sumcheck_state_from_jax"]
+           "prime_sumcheck_state_from_jax", "sharded_tables_from_jax",
+           "sharded_sumcheck_state_from_jax",
+           "sharded_prime_sumcheck_state_from_jax"]
 
 
 def tables_from_jax(jax_tables, device=None):
@@ -45,6 +52,24 @@ def tables_from_jax(jax_tables, device=None):
                       for a in arrays),
                     tuple(bool(z) for z in zero_flags),
                     subfield_tables(*arrays)))
+    return tuple(out)
+
+
+def sharded_tables_from_jax(jax_tables, device=None):
+    """(t0, k, include_low, mtile, minst, lanes, zero_flags, dtab) per group
+    of the JAX ``pallas_fused.build_tables_sharded`` -> the port's
+    ``cuda_fused.build_tables_sharded`` form (..., zero_flags, chunk32,
+    dtab), chunk32 decided from all four arrays."""
+    out = []
+    for (t0, k, include_low, mtile, minst, lanes, zero_flags,
+         dtab) in jax_tables:
+        arrays = [None if t is None else np.asarray(t)
+                  for t in (mtile, minst, lanes, dtab)]
+        out.append((int(t0), int(k), bool(include_low),
+                    *(None if a is None else to_torch(a, device)
+                      for a in arrays[:3]),
+                    tuple(bool(z) for z in zero_flags),
+                    subfield_tables(*arrays), to_torch(arrays[3], device)))
     return tuple(out)
 
 
@@ -101,3 +126,31 @@ def prime_sumcheck_state_from_jax(d: dict, device=None) -> dict:
     return {"round": int(d["round"]),
             "evals": to_torch(np.asarray(d["evals"], dtype=np.uint32),
                               device)}
+
+
+def _sharded_state(d: dict, keys, tail_from_jax, device) -> dict:
+    out = {k: int(d[k]) for k in keys}
+    out["evals"] = (None if d["evals"] is None
+                    else to_torch(np.asarray(d["evals"], dtype=np.uint32),
+                                  device))
+    out["tail"] = (None if d["tail"] is None
+                   else tail_from_jax(d["tail"], device))
+    return out
+
+
+def sharded_sumcheck_state_from_jax(d: dict, device=None) -> dict:
+    """A JAX ``ShardedSumcheck.state_dict()`` -> the port's: the global
+    evaluations as an int32 tensor on ``device``, or the single-device
+    tail's state through :func:`sumcheck_state_from_jax` (resume with
+    ``parallel.sumcheck_sharded.ShardedSumcheck.from_state_dict``)."""
+    return _sharded_state(d, ("num_vars", "composition_size", "round"),
+                          sumcheck_state_from_jax, device)
+
+
+def sharded_prime_sumcheck_state_from_jax(d: dict, device=None) -> dict:
+    """A JAX ``ShardedPrimeFieldSumcheck.state_dict()`` -> the port's, the
+    tail through :func:`prime_sumcheck_state_from_jax` (resume with
+    ``parallel.prime_sharded.ShardedPrimeFieldSumcheck
+    .from_state_dict``)."""
+    return _sharded_state(d, ("round",), prime_sumcheck_state_from_jax,
+                          device)

@@ -46,6 +46,13 @@
 //
 // Stages flagged in zero_mask have an all-zero twiddle and skip the
 // multiply.
+//
+// A sharded transform (parallel/ntt128_sharded.py) runs each shard's local
+// groups with the device bits of the indicator as one more GF(2)-linear
+// part of every twiddle: dplanes (n_stages, 128), all-ones or zero planes,
+// XORed into each stage's twiddle planes (pallas_fused.py :251-252 high,
+// :322-323 low).  A template flag, DPL, carries it, so that the
+// single-device path (null dplanes) compiles to the code it had.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -83,6 +90,16 @@ __device__ __forceinline__ uint32_t outshuffle(uint32_t x) {
   return x;
 }
 
+// plane i of a stage's twiddle correction, or 0 without one
+template <bool DPL>
+__device__ __forceinline__ uint32_t dplane(const uint32_t* __restrict__ dp,
+                                           int i) {
+  if constexpr (DPL)
+    return __ldg(dp + i);
+  else
+    return 0u;
+}
+
 __device__ __forceinline__ void load_row(const uint32_t* src, uint32_t* dst) {
   const uint4* s4 = reinterpret_cast<const uint4*>(src);
 #pragma unroll
@@ -95,10 +112,12 @@ __device__ __forceinline__ void load_row(const uint32_t* src, uint32_t* dst) {
 // ---- general route: 128-plane twiddles ----
 
 // u' = u ^ w*v, v' = u' ^ v for one row pair at one high stage
+template <bool DPL>
 __device__ __forceinline__ void butterfly(uint32_t* u, uint32_t* v,
                                           uint32_t blk, uint32_t q,
                                           const uint32_t* __restrict__ mt,
                                           const uint32_t* __restrict__ mi,
+                                          const uint32_t* __restrict__ dp,
                                           bool zero) {
   uint32_t vv[W], prod[W];
   load_row(v, vv);
@@ -109,7 +128,8 @@ __device__ __forceinline__ void butterfly(uint32_t* u, uint32_t* v,
     uint32_t w[W];
 #pragma unroll
     for (int i = 0; i < W; ++i)
-      w[i] = parity_plane(blk, __ldg(mt + i)) ^ parity_plane(q, __ldg(mi + i));
+      w[i] = parity_plane(blk, __ldg(mt + i)) ^
+             parity_plane(q, __ldg(mi + i)) ^ dplane<DPL>(dp, i);
     tower_mul128(w, vv, prod);
   }
   uint4* u4 = reinterpret_cast<uint4*>(u);
@@ -126,11 +146,13 @@ __device__ __forceinline__ void butterfly(uint32_t* u, uint32_t* v,
 }
 
 // one in-word stage on rows r0 = tile row t0 (even) and r1 = t0 + 1
+template <bool DPL>
 __device__ __forceinline__ void low_step(uint32_t* r0, uint32_t* r1,
                                          uint32_t t0, uint32_t q,
                                          const uint32_t* __restrict__ mt,
                                          const uint32_t* __restrict__ mi,
                                          const uint32_t* __restrict__ ln,
+                                         const uint32_t* __restrict__ dp,
                                          bool zero) {
   uint32_t prod[W];
   if (zero) {
@@ -141,7 +163,8 @@ __device__ __forceinline__ void low_step(uint32_t* r0, uint32_t* r1,
 #pragma unroll
     for (int i = 0; i < W; ++i) {
       const uint32_t m = __ldg(mt + i);
-      const uint32_t base = parity_plane(q, __ldg(mi + i)) ^ __ldg(ln + i);
+      const uint32_t base = parity_plane(q, __ldg(mi + i)) ^ __ldg(ln + i) ^
+                            dplane<DPL>(dp, i);
       const uint32_t w0 = parity_plane(t0, m) ^ base;
       const uint32_t w1 = parity_plane(t0 + 1, m) ^ base;
       // even row's v-lanes into the u-slots, odd row's stay in the v-slots
@@ -160,11 +183,12 @@ __device__ __forceinline__ void low_step(uint32_t* r0, uint32_t* r1,
   }
 }
 
+template <bool DPL>
 __device__ __forceinline__ void group_general(
     uint32_t* __restrict__ x, const uint32_t* __restrict__ mtile,
     const uint32_t* __restrict__ minst, const uint32_t* __restrict__ lanes,
-    int k, int post, int cols, int n_chunks, int include_low,
-    int zero_mask) {
+    const uint32_t* __restrict__ dplanes, int k, int post, int cols,
+    int n_chunks, int include_low, int zero_mask) {
   const uint32_t q = blockIdx.x / n_chunks;
   const int j0 = (blockIdx.x % n_chunks) * cols;
   const size_t row_stride = static_cast<size_t>(post) * W;
@@ -180,8 +204,9 @@ __device__ __forceinline__ void group_general(
       const int c = i % cols;
       const uint32_t t = ((b & ~lowm) << 1) | (b & lowm);   // bit p clear
       uint32_t* u = tile + t * row_stride + c * W;
-      butterfly(u, u + (static_cast<size_t>(1) << p) * row_stride,
-                t >> (p + 1), q, mtile + st * W, minst + st * W, zero);
+      butterfly<DPL>(u, u + (static_cast<size_t>(1) << p) * row_stride,
+                     t >> (p + 1), q, mtile + st * W, minst + st * W,
+                     dplanes + st * W, zero);
     }
     __syncthreads();
   }
@@ -191,8 +216,9 @@ __device__ __forceinline__ void group_general(
       uint32_t* r0 = tile + static_cast<size_t>(2 * j) * W;
       for (int i = 0; i < N_LOW; ++i) {
         const int st = k + i;
-        low_step(r0, r0 + W, 2 * j, q, mtile + st * W, minst + st * W,
-                 lanes + i * W, (zero_mask >> st) & 1);
+        low_step<DPL>(r0, r0 + W, 2 * j, q, mtile + st * W,
+                      minst + st * W, lanes + i * W, dplanes + st * W,
+                      (zero_mask >> st) & 1);
       }
     }
   }
@@ -233,11 +259,13 @@ __device__ __forceinline__ void sts_chunk(uint32_t* sm, int s,
 }
 
 // u' = u ^ w*v, v' = u' ^ v on the chunk of slots su, sv; w is planes
-// 0..31 of the stage's twiddle
+// 0..31 of the stage's twiddle (of its correction too: the route holds
+// only tables whose higher planes are zero)
+template <bool DPL>
 __device__ __forceinline__ void chunk_butterfly(
     uint32_t* sm, int su, int sv, uint32_t blk, uint32_t q,
     const uint32_t* __restrict__ mt, const uint32_t* __restrict__ mi,
-    bool zero) {
+    const uint32_t* __restrict__ dp, bool zero) {
   uint32_t a[C32], b[C32], prod[C32];
   lds_chunk(sm, sv, b);
   if (zero) {
@@ -247,7 +275,8 @@ __device__ __forceinline__ void chunk_butterfly(
     uint32_t w[C32];
 #pragma unroll
     for (int i = 0; i < C32; ++i)
-      w[i] = twiddle_plane(blk, __ldg(mt + i), q, __ldg(mi + i));
+      w[i] = twiddle_plane(blk, __ldg(mt + i), q, __ldg(mi + i)) ^
+             dplane<DPL>(dp, i);
     tower_mul32(w, b, prod);
   }
   lds_chunk(sm, su, a);
@@ -265,11 +294,13 @@ __device__ __forceinline__ void chunk_butterfly(
 // row's high) and cp (their v-lanes, packed as low_step packs them) stay
 // live across the multiply: u' = lo ^ w*cp and v' = u' ^ cp for both rows
 // at once.  t0 is even, so parity((t0 + 1) & m) = parity(t0 & m) ^ (m & 1).
+template <bool DPL>
 __device__ __forceinline__ void low_step32(uint32_t* x0, uint32_t* x1,
                                            uint32_t t0, uint32_t q,
                                            const uint32_t* __restrict__ mt,
                                            const uint32_t* __restrict__ mi,
                                            const uint32_t* __restrict__ ln,
+                                           const uint32_t* __restrict__ dp,
                                            bool zero) {
   uint32_t lo[C32], cp[C32], prod[C32];
 #pragma unroll
@@ -285,7 +316,8 @@ __device__ __forceinline__ void low_step32(uint32_t* x0, uint32_t* x1,
 #pragma unroll
     for (int i = 0; i < C32; ++i) {
       const uint32_t m = __ldg(mt + i);
-      const uint32_t w0 = twiddle_plane(t0, m, q, __ldg(mi + i)) ^ __ldg(ln + i);
+      const uint32_t w0 = twiddle_plane(t0, m, q, __ldg(mi + i)) ^
+                          __ldg(ln + i) ^ dplane<DPL>(dp, i);
       const uint32_t w1 = w0 ^ (0u - (m & 1u));
       wc[i] = (w0 & UM) | (w1 << 16);
     }
@@ -300,11 +332,12 @@ __device__ __forceinline__ void low_step32(uint32_t* x0, uint32_t* x1,
   }
 }
 
+template <bool DPL>
 __device__ __forceinline__ void group_chunk32(
     uint32_t* __restrict__ x, const uint32_t* __restrict__ mtile,
     const uint32_t* __restrict__ minst, const uint32_t* __restrict__ lanes,
-    int k, int post, int cols, int n_chunks, int include_low,
-    int zero_mask) {
+    const uint32_t* __restrict__ dplanes, int k, int post, int cols,
+    int n_chunks, int include_low, int zero_mask) {
   extern __shared__ uint4 smem4[];
   uint32_t* sm = reinterpret_cast<uint32_t*>(smem4);
   const int ch = blockIdx.x % NCHUNK;   // neighbouring blocks: one tile
@@ -335,8 +368,9 @@ __device__ __forceinline__ void group_chunk32(
       const int c = i % cols;
       const uint32_t t = ((b & ~lowm) << 1) | (b & lowm);   // bit p clear
       const int su = t * cols + c;
-      chunk_butterfly(sm, su, su + (cols << p), t >> (p + 1), q,
-                      mtile + st * W, minst + st * W, zero);
+      chunk_butterfly<DPL>(sm, su, su + (cols << p), t >> (p + 1), q,
+                           mtile + st * W, minst + st * W, dplanes + st * W,
+                           zero);
     }
     __syncthreads();
   }
@@ -350,8 +384,9 @@ __device__ __forceinline__ void group_chunk32(
 #pragma unroll 1
       for (int s = 0; s < N_LOW; ++s) {
         const int st = k + s;
-        low_step32(x0, x1, 2 * j, q, mtile + st * W, minst + st * W,
-                   lanes + s * W, (zero_mask >> st) & 1);
+        low_step32<DPL>(x0, x1, 2 * j, q, mtile + st * W, minst + st * W,
+                        lanes + s * W, dplanes + st * W,
+                        (zero_mask >> st) & 1);
       }
       sts_chunk(sm, 2 * j, x0);
       sts_chunk(sm, 2 * j + 1, x1);
@@ -367,37 +402,52 @@ __device__ __forceinline__ void group_chunk32(
   }
 }
 
-template <bool CHUNK32>
+template <bool CHUNK32, bool DPL>
 __global__ void __launch_bounds__(MAX_THREADS)
     stage_group_kernel(uint32_t* __restrict__ x,
                        const uint32_t* __restrict__ mtile,
                        const uint32_t* __restrict__ minst,
-                       const uint32_t* __restrict__ lanes, int k, int post,
+                       const uint32_t* __restrict__ lanes,
+                       const uint32_t* __restrict__ dplanes, int k, int post,
                        int cols, int n_chunks, int include_low,
                        int zero_mask) {
   if constexpr (CHUNK32)
-    group_chunk32(x, mtile, minst, lanes, k, post, cols, n_chunks,
-                  include_low, zero_mask);
+    group_chunk32<DPL>(x, mtile, minst, lanes, dplanes, k, post, cols,
+                       n_chunks, include_low, zero_mask);
   else
-    group_general(x, mtile, minst, lanes, k, post, cols, n_chunks,
-                  include_low, zero_mask);
+    group_general<DPL>(x, mtile, minst, lanes, dplanes, k, post, cols,
+                       n_chunks, include_low, zero_mask);
+}
+
+template <bool CHUNK32, bool DPL>
+void launch(unsigned blocks, int threads, int smem, cudaStream_t s,
+            uint32_t* x, const uint32_t* mt, const uint32_t* mi,
+            const uint32_t* ln, const uint32_t* dp, int k, int post,
+            int cols, int n_chunks, int include_low, int zero_mask) {
+  if constexpr (CHUNK32)
+    cudaFuncSetAttribute(stage_group_kernel<CHUNK32, DPL>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  stage_group_kernel<CHUNK32, DPL><<<blocks, threads, smem, s>>>(
+      x, mt, mi, ln, dp, k, post, cols, n_chunks, include_low, zero_mask);
 }
 
 }  // namespace
 
 // x: (n_inst, 2^k, post, 128) uint32, updated in place; mtile, minst:
-// (k + 5*include_low, 128); lanes: (5, 128) or null.  A general block
-// covers `cols` columns (cols divides post; post == cols == 1 when
-// include_low); a CHUNK32 block one 32-plane chunk of them, 2^k * cols *
-// 128 bytes of shared memory, which must be at most SMEM_LIMIT (the host
-// picks cols: ntt/cuda_fused.py::chunk32_cols).  chunk32 != 0 takes the
+// (k + 5*include_low, 128); lanes: (5, 128) or null; dplanes: (k +
+// 5*include_low, 128), XORed into every stage's twiddle, or null.  A
+// general block covers `cols` columns (cols divides post; post == cols ==
+// 1 when include_low); a CHUNK32 block one 32-plane chunk of them, 2^k *
+// cols * 128 bytes of shared memory, which must be at most SMEM_LIMIT
+// (the host picks cols: ntt/cuda_fused.py::chunk32_cols).  chunk32 != 0 takes the
 // CHUNK32 route, valid only for tables with no plane >= 32 set.  Returns
 // cudaErrorInvalidValue for arguments the kernel cannot take, else
 // cudaGetLastError() after the launch (0 = launched).
 extern "C" int bntt_stage_group(void* x, const void* mtile, const void* minst,
-                                const void* lanes, int n_inst, int k,
-                                int post, int cols, int include_low,
-                                int zero_mask, int chunk32, void* stream) {
+                                const void* lanes, const void* dplanes,
+                                int n_inst, int k, int post, int cols,
+                                int include_low, int zero_mask, int chunk32,
+                                void* stream) {
   if (k < 1 || cols < 1 || post % cols != 0 ||
       (include_low && (post != 1 || lanes == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -418,15 +468,20 @@ extern "C" int bntt_stage_group(void* x, const void* mtile, const void* minst,
   const uint32_t* mt = static_cast<const uint32_t*>(mtile);
   const uint32_t* mi = static_cast<const uint32_t*>(minst);
   const uint32_t* ln = static_cast<const uint32_t*>(lanes);
+  const uint32_t* dp = static_cast<const uint32_t*>(dplanes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (chunk32) {
-    cudaFuncSetAttribute(stage_group_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    stage_group_kernel<true><<<(unsigned)blocks, threads, smem, s>>>(
-        xx, mt, mi, ln, k, post, cols, n_chunks, include_low, zero_mask);
-  } else {
-    stage_group_kernel<false><<<(unsigned)blocks, threads, 0, s>>>(
-        xx, mt, mi, ln, k, post, cols, n_chunks, include_low, zero_mask);
-  }
+  const unsigned nb = static_cast<unsigned>(blocks);
+  if (chunk32 && dp)
+    launch<true, true>(nb, threads, smem, s, xx, mt, mi, ln, dp, k, post,
+                       cols, n_chunks, include_low, zero_mask);
+  else if (chunk32)
+    launch<true, false>(nb, threads, smem, s, xx, mt, mi, ln, dp, k, post,
+                        cols, n_chunks, include_low, zero_mask);
+  else if (dp)
+    launch<false, true>(nb, threads, smem, s, xx, mt, mi, ln, dp, k, post,
+                        cols, n_chunks, include_low, zero_mask);
+  else
+    launch<false, false>(nb, threads, smem, s, xx, mt, mi, ln, dp, k, post,
+                         cols, n_chunks, include_low, zero_mask);
   return static_cast<int>(cudaGetLastError());
 }

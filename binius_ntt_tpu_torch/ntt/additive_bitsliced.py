@@ -62,14 +62,16 @@ def _stage_twiddles_multiword(constants_row, num_bits: int) -> np.ndarray:
     return table
 
 
-def per_stage_tables(rows, log_h: int, log_rate: int, device=None):
+def per_stage_tables(rows, log_h: int, log_rate: int, device=None,
+                     stages=None):
     """The per-stage path's tables, as the reference builds them
     (additive_bitsliced.py:119-146): dicts keyed by stage of int32 tensors
     on ``device`` — high[s] (2^bits, 4) for s >= 5, low_batch[s]
     (2^(bits - lane_bits), 4) and low_lanes[s] (128,) for s < 5, where
-    bits = log_h + log_rate - 1 - s."""
+    bits = log_h + log_rate - 1 - s.  ``stages``: the stages to build
+    (default all)."""
     high, low_batch, low_lanes = {}, {}, {}
-    for s in range(log_h):
+    for s in range(log_h) if stages is None else stages:
         bits = log_h + log_rate - 1 - s
         if s >= 5:
             high[s] = to_torch(_stage_twiddles_multiword(rows[s], bits),

@@ -1,11 +1,14 @@
 """Stage-group kernel of the bit-sliced GF(2^128) additive NTT.
 
 Port of binius_ntt_tpu/ntt/pallas_fused.py.  The host table builders are
-carried over unchanged (``_bit_masks``, ``plan_groups``,
-``make_group_tables``, ``build_tables``, which adds the route flag below);
-``stage_group`` launches the CUDA kernel of csrc/stage_group.cu,
-``stage_group_plain`` is the same function in plain torch, and
-``apply_fused`` chains the groups.
+carried over unchanged (``_bit_masks``, ``plan_groups``, ``_dtable``,
+``make_group_tables_sharded`` and its log_d = 0 case
+``make_group_tables``, ``build_tables`` and ``build_tables_sharded``,
+which add the route flag below); ``stage_group`` launches the CUDA kernel
+of csrc/stage_group.cu, ``stage_group_plain`` is the same function in
+plain torch, and ``apply_fused`` chains the groups.  A sharded transform
+(parallel/ntt128_sharded.py) passes each shard's ``dplanes``, the device
+bits' part of every stage's twiddle, which both XOR into the twiddle.
 
 Route: when no table plane >= 32 is set (``subfield_tables``), every
 twiddle lies in the subfield GF(2^32), and the kernel takes its CHUNK32
@@ -47,11 +50,14 @@ from ..fields import bitsliced
 from ..utils.bits import lsr, to_torch, u32
 
 __all__ = ["KB", "KU", "PT", "SUB_PLANES", "plan_groups",
-           "make_group_tables", "subfield_tables", "build_tables",
-           "chunk32_cols", "stage_group", "stage_group_plain", "apply_fused"]
+           "make_group_tables", "make_group_tables_sharded",
+           "subfield_tables", "build_tables", "build_tables_sharded",
+           "chunk32_cols", "stage_group",
+           "stage_group_plain", "apply_fused"]
 
 HEIGHT = 7
 W = 1 << HEIGHT
+IPV = W // 32              # 4 words per compact value
 # planes of the subfield GF(2^32): the low 32 planes of the tower's GF(2^128)
 SUB_PLANES = 32
 # shared memory of a CHUNK32 block (one 32-plane chunk, 128 bytes, of each
@@ -104,37 +110,63 @@ def plan_groups(log_nb: int) -> list[tuple[int, int, bool]]:
     return groups
 
 
-def make_group_tables(rows, log_h: int, log_rate: int, t0: int, k: int,
-                      include_low: bool):
-    """Mask tables for one stage group.
+def _dtable(constants, offset: int, cnt: int, log_d: int) -> np.ndarray:
+    """Doubling table of the 128-bit indicator contributions of the device
+    bits: row d = XOR over the set bits m of d of constants[offset + m], as
+    (2^log_d, 4) uint32 words (bits beyond cnt contribute nothing)."""
+    tab = np.zeros((1, IPV), dtype=np.uint32)
+    for m in range(max(cnt, 0)):
+        c = int(constants[offset + m])
+        cw = np.array([(c >> (32 * i)) & 0xFFFFFFFF for i in range(IPV)],
+                      dtype=np.uint32)
+        tab = np.concatenate([tab, tab ^ cw[None]])
+    return np.tile(tab, (1 << (log_d - max(cnt, 0)), 1))
+
+
+def make_group_tables_sharded(rows, log_h: int, log_rate: int, t0: int,
+                              k: int, include_low: bool, log_d: int):
+    """Mask tables for one LOCAL stage group of a transform whose batches
+    are block-sharded over 2^log_d shards.
 
     rows: precompute_subspace_evals(log_h, log_rate, 7) (python ints).
-    Returns numpy (mtile, minst, lanes, zero_flags): mtile/minst
+    Shard d holds batches [d nb_l, (d+1) nb_l); a local stage s = 5+t0+r
+    sees the indicator coset << (log_h-1-s) | d << (m0+pre_bits_l) | p <<
+    m0 | tile bits (p the local pre index).  mtile is the single-device
+    one; minst packs the p part at q bits [0, pre_bits_l) and the coset
+    part above it (the kernel numbers a local instance q = coset <<
+    pre_bits_l | p); the d bits, GF(2)-linear like the rest, become a
+    per-shard correction looked up in the (n_stages, 2^log_d, 4) doubling
+    table dtab and XORed into every stage's twiddle (stage_group's
+    ``dplanes``).
+
+    Returns numpy (mtile, minst, lanes, zero_flags, dtab): mtile/minst
     (n_stages, 128) uint32 in execution order (high stages descending, then
     low 4..0), lanes (5, 128) or None, zero_flags marking stages whose
-    twiddle is identically zero.
-
-    The reference's sharded builder at log_d = 0: q = coset << pre_bits |
-    pre, so minst packs the pre bits at [0, pre_bits) and the coset bits
-    above them.
+    twiddle is zero on every shard (dtab included).
     """
-    pre_bits = log_h - 5 - t0 - k
-    mtile, minst = [], []
+    log_nb_l = log_h - 5 - log_d
+    pre_bits_l = log_nb_l - t0 - k
+    mtile, minst, dtab = [], [], []
 
-    def inst_mask(s, base_off):
+    def masks_split(s, base_off):
         nbits = log_h + log_rate - 1 - s
-        p_cnt = max(min(pre_bits, nbits - base_off), 0)
-        c_off = base_off + pre_bits
+        p_cnt = max(min(pre_bits_l, nbits - base_off), 0)
+        d_off = base_off + pre_bits_l
+        d_cnt = max(min(log_d, nbits - d_off), 0)
+        c_off = d_off + log_d
         c_cnt = max(nbits - c_off, 0)
-        return (_bit_masks(rows[s], base_off, p_cnt)
-                | (_bit_masks(rows[s], c_off, c_cnt) << np.uint32(pre_bits)))
+        mi = (_bit_masks(rows[s], base_off, p_cnt)
+              | (_bit_masks(rows[s], c_off, c_cnt) << np.uint32(pre_bits_l)))
+        return mi, _dtable(rows[s], d_off, d_cnt, log_d)
 
     for r in range(k - 1, -1, -1):
         s = 5 + t0 + r
         m0 = k - 1 - r
         nbits = log_h + log_rate - 1 - s
         mtile.append(_bit_masks(rows[s], 0, min(m0, nbits)))
-        minst.append(inst_mask(s, m0))
+        mi, dt = masks_split(s, m0)
+        minst.append(mi)
+        dtab.append(dt)
     lanes = None
     if include_low:
         lane_list = []
@@ -143,7 +175,9 @@ def make_group_tables(rows, log_h: int, log_rate: int, t0: int, k: int,
             lane_bits = min(4 - s, nbits)
             mtile.append(_bit_masks(rows[s], lane_bits,
                                     min(k, max(nbits - lane_bits, 0))))
-            minst.append(inst_mask(s, lane_bits + k))
+            mi, dt = masks_split(s, lane_bits + k)
+            minst.append(mi)
+            dtab.append(dt)
             vals = [0] * 32
             for j in range(32):
                 v = 0
@@ -168,22 +202,40 @@ def make_group_tables(rows, log_h: int, log_rate: int, t0: int, k: int,
         lanes = np.stack(lane_list)
     mtile = np.stack(mtile)
     minst = np.stack(minst)
+    dtab = np.stack(dtab)
     zero = []
     for st in range(mtile.shape[0]):
-        z = not mtile[st].any() and not minst[st].any()
+        # a stage whose only nonzero twiddle part is the device bits' is
+        # live on every shard but shard 0
+        z = (not mtile[st].any() and not minst[st].any()
+             and not dtab[st].any())
         if st >= k and lanes is not None:
             z = z and not lanes[st - k].any()
         zero.append(z)
-    return mtile, minst, lanes, tuple(zero)
+    return mtile, minst, lanes, tuple(zero), dtab
 
 
-def subfield_tables(mtile, minst, lanes) -> bool:
-    """True when no plane >= 32 of the numpy tables is set: every twiddle
+def make_group_tables(rows, log_h: int, log_rate: int, t0: int, k: int,
+                      include_low: bool):
+    """Mask tables for one stage group of a single-device transform:
+    :func:`make_group_tables_sharded` at log_d = 0, whose device table is
+    zero.  Returns
+    numpy (mtile, minst, lanes, zero_flags) as
+    :func:`make_group_tables_sharded` does."""
+    return make_group_tables_sharded(rows, log_h, log_rate, t0, k,
+                                     include_low, 0)[:4]
+
+
+def subfield_tables(mtile, minst, lanes, dtab=None) -> bool:
+    """True when no plane >= 32 of the numpy tables is set (for a sharded
+    group's device table dtab, no word 1..3 of its values): every twiddle
     they make lies in GF(2^32), and the kernel may take its CHUNK32 route.
     Holds for every domain of at most 2^32 points, whose subspace
     polynomials stay in that subfield."""
-    return not any(np.asarray(t)[:, SUB_PLANES:].any()
-                   for t in (mtile, minst, lanes) if t is not None)
+    return not (any(np.asarray(t)[:, SUB_PLANES:].any()
+                    for t in (mtile, minst, lanes) if t is not None)
+                or (dtab is not None
+                    and np.asarray(dtab)[..., SUB_PLANES // 32:].any()))
 
 
 def build_tables(rows, log_h: int, log_rate: int, device=None):
@@ -198,6 +250,27 @@ def build_tables(rows, log_h: int, log_rate: int, device=None):
                     to_torch(minst, device),
                     None if lanes is None else to_torch(lanes, device),
                     zero_flags, subfield_tables(mtile, minst, lanes)))
+    return tuple(out)
+
+
+def build_tables_sharded(rows, log_h: int, log_rate: int, log_d: int,
+                         device=None):
+    """Per-LOCAL-group tables of a transform block-sharded over 2^log_d
+    shards, ordered for execution (top group first): a tuple of (t0, k,
+    include_low, mtile, minst, lanes, zero_flags, chunk32, dtab) with
+    int32 tensors on ``device``; dtab is (n_stages, 2^log_d, 4) compact
+    words, and chunk32 :func:`subfield_tables` of all four tables.  Shard
+    d's ``dplanes`` are dtab's row d expanded into bit-planes
+    (parallel/ntt128_sharded.shard_dplanes)."""
+    out = []
+    for (t0, k, include_low) in reversed(plan_groups(log_h - 5 - log_d)):
+        mtile, minst, lanes, zero_flags, dtab = make_group_tables_sharded(
+            rows, log_h, log_rate, t0, k, include_low, log_d)
+        out.append((t0, k, include_low, to_torch(mtile, device),
+                    to_torch(minst, device),
+                    None if lanes is None else to_torch(lanes, device),
+                    zero_flags, subfield_tables(mtile, minst, lanes, dtab),
+                    to_torch(dtab, device)))
     return tuple(out)
 
 
@@ -232,7 +305,8 @@ def _outshuffle(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _group_geometry(x, mtile, minst, lanes, t0, k, include_low):
+def _group_geometry(x, mtile, minst, lanes, t0, k, include_low,
+                    dplanes=None):
     """Validate a stage_group call; return (n_inst, post)."""
     if x.dtype != torch.int32 or x.dim() != 3 or x.shape[2] != W:
         raise ValueError(f"stage_group: x must be (cosets, nb, {W}) int32, "
@@ -247,7 +321,9 @@ def _group_geometry(x, mtile, minst, lanes, t0, k, include_low):
     n_stages = k + (5 if include_low else 0)
     for name, t, rows_ in (("mtile", mtile, n_stages),
                            ("minst", minst, n_stages),
-                           ("lanes", lanes, 5 if include_low else None)):
+                           ("lanes", lanes, 5 if include_low else None),
+                           ("dplanes", dplanes,
+                            None if dplanes is None else n_stages)):
         if rows_ is None:
             continue
         if (t is None or t.dtype != torch.int32
@@ -261,7 +337,8 @@ def _group_geometry(x, mtile, minst, lanes, t0, k, include_low):
 
 
 def stage_group_plain(x, mtile, minst, lanes, *, t0: int, k: int,
-                      include_low: bool, zero_flags: tuple = ()):
+                      include_low: bool, zero_flags: tuple = (),
+                      dplanes=None):
     """Plain torch version of :func:`stage_group`, on any device.
 
     Whole-tensor ops over every instance at once, with the general
@@ -269,10 +346,11 @@ def stage_group_plain(x, mtile, minst, lanes, *, t0: int, k: int,
     holding the CHUNK32 kernel to it checks the chunk decomposition.
     Works in place like the kernel: x is updated and returned.
     Zero-flagged stages are computed like any other (their twiddle is 0, so
-    the product is 0).
+    the product is 0).  ``dplanes`` (n_stages, 128), when given, is XORed
+    into every stage's twiddle, as the reference body does.
     """
     n_inst, post = _group_geometry(x, mtile, minst, lanes, t0, k,
-                                   include_low)
+                                   include_low, dplanes)
     kk = 1 << k
     x5 = x.view(n_inst, kk, post, W)
     q = torch.arange(n_inst, dtype=torch.int32, device=x.device)
@@ -283,6 +361,8 @@ def stage_group_plain(x, mtile, minst, lanes, *, t0: int, k: int,
         blk = torch.arange(1 << st, dtype=torch.int32, device=x.device)
         w = (_parity_planes(blk[None, :, None], mtile[st])
              ^ _parity_planes(q[:, None, None], minst[st]))
+        if dplanes is not None:
+            w = w ^ dplanes[st]
         u2 = u ^ bitsliced.multiply(w[:, :, None, None, :], v, HEIGHT)
         v2 = u2 ^ v
         u.copy_(u2)
@@ -297,6 +377,8 @@ def stage_group_plain(x, mtile, minst, lanes, *, t0: int, k: int,
             wrow = (_parity_planes(t[None, :, None], mtile[st])
                     ^ _parity_planes(q[:, None, None], minst[st])
                     ^ lanes[i])
+            if dplanes is not None:
+                wrow = wrow ^ dplanes[st]
             w0, w1 = wrow[:, 0::2], wrow[:, 1::2]
             # even row's v-lanes into the u-slots, odd row's stay in v-slots
             comp = (lsr(x0, 16) & _UM) | (x1 & _VM)
@@ -313,43 +395,50 @@ def stage_group_plain(x, mtile, minst, lanes, *, t0: int, k: int,
 
 def stage_group(x, mtile, minst, lanes, *, t0: int, k: int,
                 include_low: bool, zero_flags: tuple = (),
-                chunk32: bool = False):
+                chunk32: bool = False, dplanes=None):
     """Run one stage group over x: (cosets, nb, 128) int32, IN PLACE.
 
     Covers high stages 5+t0+k-1 .. 5+t0 and, if include_low, the in-word
     stages 4..0.  x is updated in place (the reference's
-    input_output_aliases) and returned.  A CPU tensor runs
-    :func:`stage_group_plain`; a CUDA tensor launches the kernel of
-    csrc/stage_group.cu or raises: its CHUNK32 instantiation if
+    input_output_aliases) and returned.  ``dplanes``: a sharded caller's
+    (n_stages, 128) int32 twiddle correction
+    (parallel/ntt128_sharded.shard_dplanes), XORed
+    into every stage's twiddle; x is then the shard's local batches.  A
+    CPU tensor runs :func:`stage_group_plain`; a CUDA tensor launches the
+    kernel of csrc/stage_group.cu or raises: its CHUNK32 instantiation if
     ``chunk32`` (the tables' :func:`subfield_tables`, which the caller
     vouches for), else the general one.  ``launches`` counts every launch,
-    ``route_launches`` each route's.
+    ``route_launches`` each route's, ``dplanes_launches`` those given
+    ``dplanes``.
     """
     if x.device.type == "cpu":
         return stage_group_plain(x, mtile, minst, lanes, t0=t0, k=k,
                                  include_low=include_low,
-                                 zero_flags=zero_flags)
+                                 zero_flags=zero_flags, dplanes=dplanes)
     if x.device.type != "cuda":
         raise ValueError(f"stage_group: unsupported device {x.device}")
     n_inst, post = _group_geometry(x, mtile, minst, lanes, t0, k,
-                                   include_low)
+                                   include_low, dplanes)
     cols = chunk32_cols(k, post) if chunk32 else min(PT, post)
     zero_mask = sum(1 << st for st, z in enumerate(zero_flags) if z)
     lib = _build.library()
     with torch.cuda.device(x.device):
         rc = lib.bntt_stage_group(
             x.data_ptr(), mtile.data_ptr(), minst.data_ptr(),
-            lanes.data_ptr() if include_low else None, n_inst, k, post,
-            cols, int(include_low), zero_mask, int(chunk32),
+            lanes.data_ptr() if include_low else None,
+            None if dplanes is None else dplanes.data_ptr(), n_inst, k,
+            post, cols, int(include_low), zero_mask, int(chunk32),
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "stage_group")
     stage_group.launches += 1
     stage_group.route_launches["chunk32" if chunk32 else "general"] += 1
+    stage_group.dplanes_launches += dplanes is not None
     return x
 
 
 stage_group.launches = 0
 stage_group.route_launches = {"chunk32": 0, "general": 0}
+stage_group.dplanes_launches = 0
 
 
 def apply_fused(data, tables, *, log_rate: int):

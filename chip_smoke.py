@@ -14,7 +14,8 @@ run with a non-zero exit and no result line:
      stage_group32_kernel and mul_compact_kernel instantiation and of
      stage_group_r2_kernel, bitslice_lane_groups_kernel and
      mul_tiles_kernel as ptxas reports them, a line each;
-  3. mul_tiles   — kernel vs its plain torch version on the card at 2^18 + 5
+  3. mul_tiles   — (on the sharded path of phase 24) kernel vs its plain
+     torch version on the card at 2^18 + 5
      rows (a partial last tile), 2^18 and 2^19 rows, word-equal; then the
      last two timed with CUDA events (one call, and a call in a run of 10
      back to back) beside the plain version and the bound;
@@ -132,7 +133,29 @@ run with a non-zero exit and no result line:
      reset just before and read just after), each word-equal to
      mul_compact on the card and held on 4096 sampled products to the
      scalar oracle, the reference's 128-bit vector, then kernel vs plain
-     timed with CUDA events, with the kernel's share of the bound.
+     timed with CUDA events, with the kernel's share of the bound;
+ 23. sharded_kernels — stage_group with every shard's dplanes (the device
+     bits' part of each twiddle) vs its plain version, group by group on
+     each shard's block of the mt19937 input, for every shard of 4 and 8,
+     at log_h 16 (rates 0 and 2, production plan) and at (12, 0) under the
+     forced plan; both routes with random tables and random corrections;
+     mul_tiles at the cross-device stages' shapes vs plain;
+ 24. sharded_main — the eighth path, parallel/ on LocalMesh(4) on the card:
+     ShardedAdditiveNTT128(24, r) for r = 0, 2 on phase 5's inputs, held
+     to the golden MD5 digests, with every launch counter reset just
+     before and read just after (every stage_group launch with dplanes on
+     the CHUNK32 route, mul_tiles on the cross-device stages);
+     ShardedSumcheck at 2^24 for C = 2, 3, 4, each transcript through the
+     verifier and equal to phase 8's, and at num_vars 20 against the JAX
+     digests; ShardedPrimeFieldSumcheck at 2^24 equal to phase 17's
+     transcript; ShardedAdditiveNTT(24, 0) against the upstream golden
+     digest; dryrun_multichip(8) on the card; then the NTT128 at r = 0, 2
+     through a real world-size-1 NCCL process group (a file:// store),
+     held to the digests;
+ 25. sharded_timing — CUDA events at 2^24, r = 0 and 2, on LocalMesh(4):
+     the sharded apply_sliced beside the single-device one on the same
+     input, the shards' local stage-group chains with and without dplanes,
+     and the cross-device stages alone.
 
 Then three lines: the kernels as JSON, the card's name and power limit
 from nvidia-smi, and the result line
@@ -163,6 +186,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -188,6 +212,17 @@ from binius_ntt_tpu_torch.ntt.additive import (  # noqa: E402
     precompute_subspace_evals)
 from binius_ntt_tpu_torch.ntt.reference import (  # noqa: E402
     additive_ntt_scalar)
+from binius_ntt_tpu_torch.entry import dryrun_multichip  # noqa: E402
+from binius_ntt_tpu_torch.parallel.mesh import (  # noqa: E402
+    DistMesh, initialize_distributed, make_mesh, shutdown_distributed)
+from binius_ntt_tpu_torch.parallel.ntt128_sharded import (  # noqa: E402
+    ShardedAdditiveNTT128, shard_dplanes)
+from binius_ntt_tpu_torch.parallel.ntt_sharded import (  # noqa: E402
+    ShardedAdditiveNTT)
+from binius_ntt_tpu_torch.parallel.prime_sharded import (  # noqa: E402
+    ShardedPrimeFieldSumcheck)
+from binius_ntt_tpu_torch.parallel.sumcheck_sharded import (  # noqa: E402
+    ShardedSumcheck)
 from binius_ntt_tpu_torch.sumcheck import (  # noqa: E402
     cuda_prime_round as cpr)
 from binius_ntt_tpu_torch.sumcheck import cuda_round as cr  # noqa: E402
@@ -205,6 +240,10 @@ W = 128
 SUMCHECK_SEED = 0x5C0024        # the 2^24 sumcheck inputs and challenges
 COMPS = (2, 3, 4)               # the reference's composition sizes
 QM31_SEED = 0x3131024            # the 2^24 QM31 inputs and challenges
+# stage-group chain of the single-device 2^24 transform at rates 0 and 2,
+# ms, as recorded before the dplanes operand (PERF.md §6, row 1), printed
+# beside phase 6's times
+EARLIER_CHAIN_MS = {0: 3.418, 2: 13.611}
 COUNTED = (ck.mul_tiles, cf.stage_group, cr.round_kernel, cr.fold_kernel,
            cf32.bitslice_lane_groups, cf32.stage_group32, cfb.stage_group_r2,
            cpr.round_kernel, cpr.fold_kernel, ck.butterfly_high,
@@ -226,6 +265,10 @@ STAGE_GROUP32_KERNELS = ("stage_group32_kernelILb0E",
                          "stage_group32_kernelILb1E")
 # and of mul_compact_kernel<H> (ILi7E: <7>), and the lane-group transpose
 MUL_COMPACT_KERNELS = tuple(f"mul_compact_kernelILi{h}E" for h in (5, 6, 7))
+# and of stage_group_kernel<CHUNK32, DPL> (ILb1ELb0E: <true, false>, the
+# single-device CHUNK32 route; DPL: with the sharded path's dplanes)
+STAGE_GROUP_KERNELS = tuple(f"stage_group_kernelILb{c}ELb{d}E"
+                            for c in (1, 0) for d in (0, 1))
 LANES_KERNEL = "bitslice_lane_groups_kernel"
 MUL_TILES_KERNEL = "mul_tiles_kernel"
 
@@ -378,6 +421,7 @@ def reset_counts() -> None:
     for wrapper in COUNTED:
         wrapper.launches = 0
     cf.stage_group.route_launches = {"chunk32": 0, "general": 0}
+    cf.stage_group.dplanes_launches = 0
     ck.butterfly_high.route_launches = {"chunk32": 0, "general": 0}
     ck.butterfly_low.route_launches = {"chunk32": 0, "general": 0}
 
@@ -426,7 +470,8 @@ def phase_build() -> None:
              if "registers" in ln or "spill" in ln or "Compiling" in ln]
     say("build", f"nvcc {_build.build_info['seconds']:.1f} s "
         f"(load {wall:.1f} s); ptxas: {' | '.join(usage)}")
-    for name in (SUMCHECK_KERNELS + BUTTERFLY_HIGH_KERNELS
+    for name in (STAGE_GROUP_KERNELS + SUMCHECK_KERNELS
+                 + BUTTERFLY_HIGH_KERNELS
                  + BUTTERFLY_LOW_KERNELS + STAGE_GROUP32_KERNELS
                  + ("stage_group_r2_kernel", LANES_KERNEL)
                  + MUL_COMPACT_KERNELS + (MUL_TILES_KERNEL,)):
@@ -679,7 +724,9 @@ def phase_timing(runs, dev) -> dict:
                            for *_, zero, chunk32 in tables),
                        2 * x.numel() * 4))
         msg = (f"2^{ntt.log_h} rate {log_rate} stage groups {plan}: kernel "
-               f"{t['ms']:.3f} ms (CHUNK32), general route on the earlier "
+               f"{t['ms']:.3f} ms (CHUNK32, null dplanes; before dplanes: "
+               f"{EARLIER_CHAIN_MS[log_rate]} ms), general route on the "
+               f"earlier "
                f"plan (8, 8, 8) {t['general_ms']:.3f} ms (word-equal); groups "
                f"alone "
                f"{[round(g, 3) for g in t['group_ms']]} ms; bound "
@@ -806,7 +853,7 @@ def phase_sumcheck_main(dev, sc, num_vars=24, golden_num_vars=20):
                 f"{digest} != the JAX package's {want}")
         say("sumcheck_main", f"num_vars {nv}, C={comp}: transcript MD5 "
             f"{digest} matches the JAX package's")
-    return launches, words, challenges
+    return launches, words, challenges, {c: m for c, m, _ in runs}
 
 
 def timed_protocol(prover, challenges) -> list[float]:
@@ -1356,7 +1403,7 @@ def phase_qm31_main(dev, pg, num_vars=24, golden_num_vars=20):
             f"MD5 {digest} != the JAX package's {want}")
     say("qm31_main", f"num_vars {golden_num_vars}: transcript MD5 {digest} "
         f"matches the JAX package's")
-    return launches, evals, challenges
+    return launches, evals, challenges, messages
 
 
 def phase_qm31_timing(dev, evals, challenges, worst, num_vars=24) -> dict:
@@ -1739,6 +1786,296 @@ def phase_compact_mul(dev, n=1 << 24) -> dict:
         f"matches the scalar oracle")
     return out
 
+# ---- the sharded paths (phases 23-25) ----
+
+SHARDS = 4                      # LocalMesh shards of the sharded main path
+
+
+def _sharded_groups_vs_plain(log_h: int, log_rate: int, log_d: int,
+                             dev) -> int:
+    """Every shard's local groups, kernel with its dplanes vs plain, group
+    by group on the shard's block of the mt19937 input; returns max err."""
+    rows = precompute_subspace_evals(log_h, log_rate, 7)
+    tables = cf.build_tables_sharded(rows, log_h, log_rate, log_d, dev)
+    data = sliced_input(log_h, log_rate, dev)
+    sb = data.shape[0] >> log_d
+    worst, before = 0, cf.stage_group.dplanes_launches
+    for d in range(1 << log_d):
+        x = data[d * sb:(d + 1) * sb].repeat(1 << log_rate, 1).view(
+            1 << log_rate, sb, W)
+        for (t0, k, low, mtile, minst, lanes, zero, chunk32,
+             dtab) in tables:
+            require(chunk32, f"sharded ({log_h}, {log_rate}) group (t0={t0}, "
+                    f"k={k}) is not flagged CHUNK32")
+            kw = dict(t0=t0, k=k, include_low=low, zero_flags=zero,
+                      dplanes=shard_dplanes(dtab, d))
+            want = cf.stage_group_plain(x.clone(), mtile, minst, lanes, **kw)
+            cf.stage_group(x, mtile, minst, lanes, chunk32=chunk32, **kw)
+            torch.cuda.synchronize()
+            err = max_abs_err(x, want)
+            require(err == 0, f"stage_group with dplanes (t0={t0}, k={k}) "
+                    f"on shard {d} of {1 << log_d} at ({log_h}, {log_rate}) "
+                    f"differs from plain ({err})")
+            worst = max(worst, err)
+            del want
+    n = len(tables) << log_d
+    require(cf.stage_group.dplanes_launches == before + n,
+            "a group ran without its dplanes")
+    say("sharded_kernels", f"({log_h}, {log_rate}) on {1 << log_d} shards, "
+        f"plan {[(t0, k, low) for (t0, k, low, *_) in tables]} CHUNK32: "
+        f"every shard's groups with its dplanes word-equal to plain "
+        f"(max_abs_err {worst}, tolerance exact)")
+    return worst
+
+
+def _sharded_random_tables(log_h: int, log_d: int, dev) -> int:
+    """Both routes on random tables and random corrections, each shard's
+    local plan; returns max err."""
+    random_group_tables = load_test_file(
+        "torch_stage_group_tables").random_group_tables
+    worst = 0
+    plan = list(reversed(cf.plan_groups(log_h - 5 - log_d)))
+    nb_l = (1 << log_h) // 32 >> log_d
+    for width, route in ((W, "general"), (cf.SUB_PLANES, "chunk32")):
+        rng = np.random.default_rng(SEED + 7 * log_h + width)
+        before = cf.stage_group.route_launches[route]
+        for d in range(1 << log_d):
+            x = to_torch(rng.integers(0, 1 << 32, (2, nb_l, W),
+                                      dtype=np.uint32), dev)
+            for t0, k, low in plan:
+                mtile, minst, lanes = random_group_tables(rng, k, low, width,
+                                                          dev)
+                dpl = np.zeros((k + 5 * low, W), np.uint32)
+                dpl[:, :width] = rng.integers(0, 1 << 32, (k + 5 * low,
+                                                           width),
+                                              dtype=np.uint32)
+                kw = dict(t0=t0, k=k, include_low=low,
+                          dplanes=to_torch(dpl, dev))
+                want = cf.stage_group_plain(x.clone(), mtile, minst, lanes,
+                                            **kw)
+                cf.stage_group(x, mtile, minst, lanes,
+                               chunk32=route == "chunk32", **kw)
+                torch.cuda.synchronize()
+                err = max_abs_err(x, want)
+                require(err == 0, f"stage_group ({route}) with random "
+                        f"dplanes (t0={t0}, k={k}, shard {d}) differs from "
+                        f"plain ({err})")
+                worst = max(worst, err)
+        require(cf.stage_group.route_launches[route]
+                == before + (len(plan) << log_d),
+                f"the {route} route was not taken")
+    say("sharded_kernels", f"({log_h}, 1) on {1 << log_d} shards, plan "
+        f"{plan} on random tables and corrections: general (planes 0..127) "
+        f"and CHUNK32 (planes 0..31) word-equal to plain (max_abs_err "
+        f"{worst}, tolerance exact)")
+    return worst
+
+
+def _cross_stage_products(dev) -> int:
+    """mul_tiles at the cross-device stages' shapes of the 2^24 transform
+    on SHARDS shards (a twiddle a coset, broadcast over a shard's half)
+    vs plain; returns max err."""
+    rng = np.random.default_rng(SEED + 23)
+    worst = 0
+    for log_rate in (0, 2):
+        cosets = 1 << log_rate
+        half = (1 << 19) // SHARDS // 2          # batches in a shard half
+        w4 = rng.integers(0, 1 << 32, (cosets, 4), dtype=np.uint32)
+        w4[:, 1:] = 0                            # twiddles in GF(2^32)
+        w = ck._expand_bits(to_torch(w4, dev))
+        a = w[:, None, :].expand(cosets, half, W).reshape(-1, W).contiguous()
+        b = to_torch(rng.integers(0, 1 << 32, (cosets * half, W),
+                                  dtype=np.uint32), dev)
+        err = max_abs_err(ck.mul_tiles(a, b), ck.mul_tiles_plain(a, b))
+        require(err == 0, f"mul_tiles at the cross-device shape (rate "
+                f"{log_rate}, {cosets * half} rows) differs from plain "
+                f"({err})")
+        worst = max(worst, err)
+        say("sharded_kernels", f"mul_tiles at the cross-device stage's "
+            f"shape, rate {log_rate}: {cosets * half} rows, word-equal to "
+            f"plain (max_abs_err {err}, tolerance exact)")
+    return worst
+
+
+def phase_sharded_kernels(dev) -> dict:
+    worst = 0
+    for log_d in (2, 3):
+        for log_rate in (0, 2):
+            worst = max(worst, _sharded_groups_vs_plain(16, log_rate, log_d,
+                                                        dev))
+    with forced_plan(2, 2, 2):           # multi-group seams, shard-local
+        for log_d in (2, 3):
+            worst = max(worst, _sharded_groups_vs_plain(12, 0, log_d, dev))
+        worst = max(worst, _sharded_random_tables(12, 3, dev))
+    return {"stage_group": worst, "mul_tiles": _cross_stage_products(dev)}
+
+
+def prime_transcript(prover, challenges) -> list:
+    """The QM31 transcript of tests/test_torch_prime_sumcheck_golden.py
+    (every round's points, then the two values left), for a sharded
+    prover, whose last values are in its tail's state."""
+    messages = []
+    for ch in challenges:
+        messages.append(np.asarray(prover.round_messages()))
+        prover.fold(ch)
+    d = prover.state_dict()
+    evals = d["evals"] if d["evals"] is not None else d["tail"]["evals"]
+    messages.append(np.asarray(evals)[:, 0])
+    return messages
+
+
+def phase_sharded_main(dev, golden, golden32, sc, sc_words, sc_challenges,
+                       sc_messages, pg, q_evals, q_challenges, q_messages):
+    """The eighth path: every sharded class on LocalMesh(SHARDS) on the
+    card, the counters reset just before each drive and read just after."""
+    log_h = 24
+    mesh = make_mesh(SHARDS, dev)
+    t0 = time.perf_counter()
+    ntts = [(r, ShardedAdditiveNTT128(log_h, r, mesh)) for r in (0, 2)]
+    inputs = {r: sliced_input(log_h, r, dev) for r in (0, 2)}
+    say("sharded_main", f"set-up (twiddles, sharded tables, inputs) "
+        f"{time.perf_counter() - t0:.1f} s host")
+
+    def check_ntt(r, out, where):
+        require(tuple(out.shape) == ((1 << (log_h + r)) // 32, W),
+                f"{where} output shape {tuple(out.shape)}")
+        digest = md5_words(bitslice_untranspose(out).reshape(-1))
+        require(digest == golden[r][log_h], f"{where} ({log_h}, {r}) digest "
+                f"{digest} != golden {golden[r][log_h]}")
+        return digest
+
+    reset_counts()
+    outs = [(r, ntt.apply_sliced(inputs[r])) for r, ntt in ntts]
+    torch.cuda.synchronize()
+    launches = {"stage_group": cf.stage_group.launches,
+                "stage_group_dplanes": cf.stage_group.dplanes_launches,
+                "stage_group_routes": dict(cf.stage_group.route_launches),
+                "mul_tiles": ck.mul_tiles.launches}
+    for r, out in outs:
+        digest = check_ntt(r, out, "ShardedAdditiveNTT128")
+        say("sharded_main", f"ShardedAdditiveNTT128({log_h}, {r}, LocalMesh("
+            f"{SHARDS}, cuda)).apply_sliced: golden MD5 {digest} matches")
+    del outs
+    n_sg = launches["stage_group"]
+    require(n_sg > 0 and launches["stage_group_dplanes"] == n_sg
+            and launches["stage_group_routes"] == {"chunk32": n_sg,
+                                                   "general": 0},
+            f"every sharded group must launch with dplanes on the CHUNK32 "
+            f"route: {launches}")
+    require(launches["mul_tiles"] > 0, "mul_tiles never launched")
+    say("sharded_main", f"launches: stage_group {n_sg} (with dplanes "
+        f"{launches['stage_group_dplanes']}, by route "
+        f"{launches['stage_group_routes']}), mul_tiles "
+        f"{launches['mul_tiles']}")
+
+    reset_counts()
+    for comp in COMPS:
+        t1 = time.perf_counter()
+        messages = sc.transcript(ShardedSumcheck(
+            sc_words[:4 * (1 << log_h) * comp], comp, log_h, mesh),
+            sc_challenges)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t1
+        verifier.check_transcript(messages, sc_challenges, comp + 1)
+        require(same_transcript(messages, sc_messages[comp]),
+                f"sharded sumcheck C={comp} transcript differs from phase "
+                f"8's single-device one")
+        say("sharded_main", f"ShardedSumcheck(2^24, C={comp}, LocalMesh("
+            f"{SHARDS})): passes the verifier and equals phase 8's "
+            f"single-device transcript; {sec:.3f} s host clock")
+    launches.update({"sumcheck_round": cr.round_kernel.launches,
+                     "sumcheck_fold": cr.fold_kernel.launches})
+    for comp in COMPS:
+        w, ch = sc.protocol_inputs(20, comp, mt19937_stream)
+        digest = sc.transcript_md5(sc.transcript(
+            ShardedSumcheck(w, comp, 20, mesh), ch))
+        require(digest == sc.SUMCHECK_TRANSCRIPT_MD5[20][comp],
+                f"sharded num_vars 20, C={comp}: transcript MD5 {digest} != "
+                f"the JAX package's")
+    say("sharded_main", "ShardedSumcheck num_vars 20, C = 2, 3, 4: "
+        "transcript MD5s match the JAX package's")
+
+    reset_counts()
+    qm = prime_transcript(ShardedPrimeFieldSumcheck(q_evals, mesh),
+                          q_challenges)
+    launches.update({"prime_round": cpr.round_kernel.launches,
+                     "prime_fold": cpr.fold_kernel.launches})
+    require(len(qm) == len(q_messages) and all(
+        np.array_equal(a, b) for a, b in zip(qm, q_messages)),
+        "the sharded QM31 transcript differs from phase 17's")
+    check_transcript(qm[:-1], q_challenges, qm[-1])
+    say("sharded_main", f"ShardedPrimeFieldSumcheck(2 x 2^24, LocalMesh("
+        f"{SHARDS})): equals phase 17's transcript, MD5 "
+        f"{pg.transcript_md5(qm)}")
+    require(min(launches[k] for k in ("sumcheck_round", "sumcheck_fold",
+                                      "prime_round", "prime_fold")) > 0,
+            f"a sumcheck kernel was not launched: {launches}")
+
+    out32 = ShardedAdditiveNTT(log_h, 0, mesh).apply(words32(log_h, 0))
+    digest = md5_words(out32)
+    require(digest == golden32[0][log_h], f"ShardedAdditiveNTT(24, 0) "
+            f"digest {digest} != golden")
+    say("sharded_main", f"ShardedAdditiveNTT(24, 0, LocalMesh({SHARDS})): "
+        f"golden MD5 {digest} matches")
+    del out32
+
+    dryrun_multichip(8, dev)
+    say("sharded_main", "dryrun_multichip(8, cuda) passed")
+
+    # the transform through a real process group: one rank, NCCL
+    with tempfile.TemporaryDirectory() as tmp:
+        require(initialize_distributed(f"file://{tmp}/store", 1, 0,
+                                       backend="nccl"),
+                "no process group was set up")
+        try:
+            dmesh = make_mesh(device=dev)
+            require(isinstance(dmesh, DistMesh), "not a DistMesh")
+            for r in (0, 2):
+                digest = check_ntt(r, ShardedAdditiveNTT128(
+                    log_h, r, dmesh).apply_sliced(inputs[r]), "NCCL")
+                say("sharded_main", f"ShardedAdditiveNTT128(24, {r}) on a "
+                    f"world-size-1 NCCL group: golden MD5 {digest} matches")
+        finally:
+            shutdown_distributed()
+    say("sharded_main", f"launches {launches}")
+    return launches, ntts, inputs
+
+
+def phase_sharded_timing(smi, ntt_runs, ntts, inputs) -> dict:
+    """CUDA events at 2^24 on LocalMesh(SHARDS): the sharded apply_sliced
+    beside the single-device one, the shards' local stage-group chain with
+    and without dplanes, and the cross-device stages alone."""
+    single = {r: ntt for r, ntt, _ in ntt_runs}
+    out = {}
+    for r, sh in ntts:
+        sliced = inputs[r]
+        xs = sh.shard_input(sliced)
+
+        def chain(dplanes: bool):
+            for d, x in xs.items():
+                for g, dpl in zip(sh.groups, sh.dplanes[d]):
+                    cf.stage_group(x, *g[3:6], t0=g[0], k=g[1],
+                                   include_low=g[2], zero_flags=g[6],
+                                   chunk32=g[7],
+                                   dplanes=dpl if dplanes else None)
+
+        t = {"apply_ms": device_time(sh.apply_sliced, sliced),
+             "single_apply_ms": device_time(single[r].apply_sliced, sliced),
+             "chain_dplanes_ms": device_time(chain, True),
+             "chain_null_ms": device_time(chain, False),
+             "cross_ms": device_time(sh.cross_stages, xs)}
+        t = {k: v * 1e3 for k, v in t.items()}
+        say("sharded_timing", f"2^24 rate {r}, LocalMesh({SHARDS}) on one "
+            f"card ({smi}): sharded apply_sliced {t['apply_ms']:.3f} ms "
+            f"(single-device fused {t['single_apply_ms']:.3f} ms); the "
+            f"shards' local stage-group chains {t['chain_dplanes_ms']:.3f} "
+            f"ms with dplanes, {t['chain_null_ms']:.3f} ms with null "
+            f"dplanes; the cross-device stages alone {t['cross_ms']:.3f} ms "
+            f"(exchanges in memory)")
+        out[r] = t
+        del xs
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1756,7 +2093,8 @@ def main() -> int:
     timing = phase_timing(ntt_runs, dev)
     sc = load_test_file("test_torch_sumcheck_golden")
     sc_err = phase_sumcheck_kernels(dev)
-    sc_launches, words, challenges = phase_sumcheck_main(dev, sc)
+    sc_launches, words, challenges, sc_messages = phase_sumcheck_main(dev,
+                                                                      sc)
     sc_timing = phase_sumcheck_timing(dev, words, challenges, sc_err)
     t32 = time.perf_counter()
     golden32 = golden32_table()
@@ -1772,7 +2110,7 @@ def main() -> int:
     del r2_runs
     pg = load_test_file("test_torch_prime_sumcheck_golden")
     q_err = phase_qm31_kernels(dev)
-    q_launches, q_evals, q_challenges = phase_qm31_main(dev, pg)
+    q_launches, q_evals, q_challenges, q_messages = phase_qm31_main(dev, pg)
     q_timing = phase_qm31_timing(dev, q_evals, q_challenges, q_err)
     say("qm31_timing", f"phases 13-18 took {time.perf_counter() - t13:.1f} "
         f"s")
@@ -1786,6 +2124,15 @@ def main() -> int:
     t22 = time.perf_counter()
     cm = phase_compact_mul(dev)
     say("compact_mul", f"phase 22 took {time.perf_counter() - t22:.1f} s")
+    t23 = time.perf_counter()
+    sh_err = phase_sharded_kernels(dev)
+    sh_launches, sh_ntts, sh_inputs = phase_sharded_main(
+        dev, golden, golden32, sc, words, challenges, sc_messages, pg,
+        q_evals, q_challenges, q_messages)
+    sh_timing = phase_sharded_timing(smi, ntt_runs, sh_ntts, sh_inputs)
+    del sh_ntts, sh_inputs
+    say("sharded_timing", f"phases 23-25 took "
+        f"{time.perf_counter() - t23:.1f} s")
 
     # bounds of the earlier kernels, from the shapes of their timed calls:
     # 2^24 points (rate 0) for the NTT chains, the sumcheck's first round
@@ -1808,6 +2155,7 @@ def main() -> int:
             "source": f"binius_ntt_tpu_torch/csrc/sumcheck_{kind}.cu",
             "replaces": f"binius_ntt_tpu/sumcheck/pallas_round.py:{line}",
             "launches": sc_launches[f"sumcheck_{kind}"],
+            "sharded_launches": sh_launches[f"sumcheck_{kind}"],
             "max_abs_err": sc_err[kind],
             "ms": sc_timing[2][f"{kind}_ms"],
             "plain_ms": sc_timing[2][f"{kind}_plain_ms"],
@@ -1830,6 +2178,7 @@ def main() -> int:
             "replaces": "binius_ntt_tpu/sumcheck/pallas_prime_round.py:"
                         f"{line}",
             "launches": q_launches[f"prime_{kind}"],
+            "sharded_launches": sh_launches[f"prime_{kind}"],
             "max_abs_err": q_err[kind],
             "ms": q_timing[f"{kind}_ms"],
             "plain_ms": q_timing[f"{kind}_plain_ms"],
@@ -1862,14 +2211,19 @@ def main() -> int:
                                               for r in (0, 2)},
             **{k: t[k] for k in ("bound_ms", "bound_by", "library_ms")}}
 
-    mul["launches"] = launches["mul_tiles"]
+    # mul_tiles' one path is the sharded NTT128's cross-device stages
+    mul["launches"] = sh_launches["mul_tiles"]
+    mul["max_abs_err"] = max(mul["max_abs_err"], sh_err["mul_tiles"])
+    mul["cross_stages_ms_by_rate"] = {r: t["cross_ms"]
+                                      for r, t in sh_timing.items()}
     kernels = {
         "kernels": [{
             "name": "stage_group", "route": "cuda",
             "source": "binius_ntt_tpu_torch/csrc/stage_group.cu",
             "replaces": "binius_ntt_tpu/ntt/pallas_fused.py:341",
             "launches": launches["stage_group"],
-            "max_abs_err": max(sg_err, timing[0]["err"], timing[2]["err"]),
+            "max_abs_err": max(sg_err, timing[0]["err"], timing[2]["err"],
+                               sh_err["stage_group"]),
             "ms": timing[0]["ms"], "plain_ms": timing[0]["plain_ms"],
             "shape": "every group of the 2^24 rate-0 transform (CHUNK32 "
                      "route); by_rate has rate 2",
@@ -1877,6 +2231,20 @@ def main() -> int:
             "by_rate": {r: {k: timing[r][k] for k in (
                 "ms", "general_ms", "group_ms", "apply_ms", "bound_ms")}
                 for r in (0, 2)},
+            "dplanes": {
+                "sharded_launches": sh_launches["stage_group"],
+                "with_dplanes": sh_launches["stage_group_dplanes"],
+                "max_abs_err": sh_err["stage_group"],
+                "shape": f"the local groups of the 2^24 transform on "
+                         f"LocalMesh({SHARDS}), every shard",
+                "chain_ms_by_rate": {r: t["chain_dplanes_ms"]
+                                     for r, t in sh_timing.items()},
+                "chain_null_dplanes_ms_by_rate": {
+                    r: t["chain_null_ms"] for r, t in sh_timing.items()},
+                "sharded_apply_ms_by_rate": {
+                    r: t["apply_ms"] for r, t in sh_timing.items()},
+                "single_apply_ms_by_rate": {
+                    r: t["single_apply_ms"] for r, t in sh_timing.items()}},
             **{k: timing[0][k] for k in ("bound_ms", "bound_by",
                                          "library_ms")}},
             sumcheck_entry("round", 175), sumcheck_entry("fold", 294),
@@ -1934,13 +2302,8 @@ def main() -> int:
                       "by_height has heights 5 and 6",
              "by_height": {h: cm[h] for h in (5, 6, 7)},
              **{k: cm[7][k] for k in ("bound_ms", "bound_by",
-                                      "library_ms")}}],
-        # built and checked, but on neither of the port's paths.  In the
-        # reference it runs in the TPU sumcheck's small rounds (the jnp
-        # kernels below the Pallas tile gate multiply through it); the
-        # port's sumcheck_round and sumcheck_fold take that work over for
-        # every round
-        "off_path": [mul],
+                                      "library_ms")}},
+            mul],
     }
     print(json.dumps(kernels))
     print(smi)

@@ -34,6 +34,9 @@ from binius_ntt_tpu_torch.ntt import cuda_fused32 as cf32
 from binius_ntt_tpu_torch.ntt import cuda_fused_bb31 as cfb
 from binius_ntt_tpu_torch.ntt import cuda_kernels as ck
 from binius_ntt_tpu_torch.ntt.additive import precompute_subspace_evals
+from binius_ntt_tpu_torch.parallel.mesh import make_mesh
+from binius_ntt_tpu_torch.parallel.ntt128_sharded import (
+    ShardedAdditiveNTT128, shard_dplanes)
 from binius_ntt_tpu_torch.sumcheck import cuda_prime_round as cpr
 from binius_ntt_tpu_torch.sumcheck import cuda_round as cr
 from binius_ntt_tpu_torch.sumcheck import verifier as V
@@ -837,3 +840,86 @@ def test_entry_points_default_to_cuda0(dev):
     assert PrimeFieldSumcheck.from_state_dict(
         {"round": 1, "evals": np.zeros((2, 4, 4), np.uint32)}).device == \
         expect
+
+
+# ---- the sharded paths (binius_ntt_tpu_torch/parallel/) ----
+
+
+@pytest.mark.parametrize("log_h,log_rate,log_d", [(12, 0, 3), (13, 2, 3),
+                                                  (16, 0, 2)])
+def test_stage_group_kernel_with_dplanes_matches_plain(dev, log_h, log_rate,
+                                                       log_d, monkeypatch):
+    """Every group of a forced local plan with every shard's dplanes, the
+    tables' zero flags passed on: at rate 0 the top local stage's twiddle
+    is the device bits' alone, live on every shard but 0."""
+    monkeypatch.setattr(cf, "KB", 2)
+    monkeypatch.setattr(cf, "KU", 2)
+    monkeypatch.setattr(cf, "PT", 2)
+    rows = precompute_subspace_evals(log_h, log_rate, 7)
+    tables = cf.build_tables_sharded(rows, log_h, log_rate, log_d, dev)
+    nb_l = (1 << log_h) // 32 >> log_d
+    before = cf.stage_group.dplanes_launches
+    for g, (t0, k, low, mtile, minst, lanes, zero, chunk32,
+            dtab) in enumerate(tables):
+        assert chunk32
+        kw = dict(t0=t0, k=k, include_low=low, zero_flags=zero)
+        for d in range(1 << log_d):
+            x = _rand(30 + 8 * g + d, (1 << log_rate, nb_l, 128), dev)
+            dpl = shard_dplanes(dtab, d)
+            want = cf.stage_group_plain(x.clone(), mtile, minst, lanes,
+                                        dplanes=dpl, **kw)
+            cf.stage_group(x, mtile, minst, lanes, chunk32=chunk32,
+                           dplanes=dpl, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(x, want), (t0, k, d)
+    assert cf.stage_group.dplanes_launches == before + (len(tables) << log_d)
+
+
+@pytest.mark.parametrize("high_planes", [True, False])
+def test_stage_group_kernel_with_random_dplanes(dev, high_planes,
+                                                monkeypatch):
+    """Both routes on random tables and random corrections through a whole
+    forced plan of a shard, D = 8: the general route with planes >= 32 set
+    in every table, CHUNK32 on GF(2^32) ones."""
+    monkeypatch.setattr(cf, "KB", 2)
+    monkeypatch.setattr(cf, "KU", 2)
+    monkeypatch.setattr(cf, "PT", 2)
+    width = 128 if high_planes else cf.SUB_PLANES
+    rng = np.random.default_rng(7 + width)
+    log_h, log_d = 12, 3
+    plan = list(reversed(cf.plan_groups(log_h - 5 - log_d)))
+    for d in range(1 << log_d):
+        x = _rand(60 + d, (2, (1 << log_h) // 32 >> log_d, 128), dev)
+        for t0, k, low in plan:
+            mtile, minst, lanes = random_group_tables(rng, k, low, width,
+                                                      dev)
+            dpl = np.zeros((k + 5 * low, 128), np.uint32)
+            dpl[:, :width] = rng.integers(0, 1 << 32, (k + 5 * low, width),
+                                          dtype=np.uint32)
+            dpl = to_torch(dpl, dev)
+            kw = dict(t0=t0, k=k, include_low=low)
+            want = cf.stage_group_plain(x.clone(), mtile, minst, lanes,
+                                        dplanes=dpl, **kw)
+            cf.stage_group(x, mtile, minst, lanes, chunk32=not high_planes,
+                           dplanes=dpl, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(x, want), (t0, k, d)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("log_h,log_rate", [(12, 0), (13, 2)])
+def test_sharded_ntt128_on_card(dev, log_h, log_rate, fused):
+    """LocalMesh(4) on the card against the single-device transform, every
+    product a mul_tiles launch and every local group a stage_group launch
+    with dplanes."""
+    sliced = bitslice_transpose(to_torch(_words(log_h, log_rate),
+                                         dev).view(-1, 128))
+    want = AdditiveNTT128(log_h, log_rate, device=dev).apply_sliced(sliced)
+    ntt = ShardedAdditiveNTT128(log_h, log_rate, make_mesh(4, dev),
+                                use_fused=fused)
+    mul0, sg0 = ck.mul_tiles.launches, cf.stage_group.dplanes_launches
+    got = ntt.apply_sliced(sliced)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and torch.equal(got, want)
+    assert ck.mul_tiles.launches > mul0
+    assert (cf.stage_group.dplanes_launches > sg0) == fused
