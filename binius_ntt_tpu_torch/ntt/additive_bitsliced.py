@@ -26,8 +26,16 @@ expand them.  Each stage's route (``cuda_kernels.high_subfield`` and
 ``low_subfield``: its twiddles lie in GF(2^32)) is decided once, when the
 tables are made.
 
+Capacity route of ``apply``: the whole-array layout transforms make
+several array-sized temporaries (layout/bitslicing.py), so where the peak
+they would reach (:func:`whole_array_peak`, from a factor measured on the
+card) passes the device's budget (:func:`capacity_budget`), ``apply``
+transposes and untransposes in chunks of rows instead
+(:func:`streams`).  The reference's gate (a fixed 14e9 bytes, sized for a
+15.75 GB TPU) is not carried over.
+
 Not ported: ``use_pallas`` (the tensor's device picks kernel or plain
-version) and the host-side capacity gate.
+version).
 """
 
 from __future__ import annotations
@@ -35,7 +43,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..layout.bitslicing import bitslice_transpose, bitslice_untranspose
+from ..layout.bitslicing import (CHUNK_ROWS, _pick_chunk,
+                                 bitslice_transpose,
+                                 bitslice_transpose_streamed,
+                                 bitslice_untranspose)
 from ..utils.bits import to_torch
 from ..utils.capabilities import default_device
 from . import cuda_fused, cuda_kernels
@@ -43,11 +54,52 @@ from .additive import precompute_subspace_evals
 from .nttdata import DataOrder, NTTData
 
 __all__ = ["AdditiveNTT128", "per_stage_tables", "routes",
-           "per_stage_steps", "apply_per_stage"]
+           "per_stage_steps", "apply_per_stage", "whole_array_peak",
+           "capacity_budget", "streams"]
 
 HEIGHT = 7
 W = 1 << HEIGHT            # 128 bit-planes
 IPV = W // 32              # 4 words per compact value
+
+# Device peak of the whole-array apply from host words
+# (max_memory_allocated over the call: the uploaded input and the
+# transposes' temporaries, then the output and its untranspose's) over the
+# larger of its input and output buffers.  Measured 4.500 at 2^24, 2^26,
+# 2^27 and 2^28 r0 and at 2^26 r2, and 4.50 at 2^29 r0
+# (tools/torch_capacity.py --checks peaks and chip_smoke.py phase 26, on an
+# NVIDIA H100 80GB HBM3 at a 700.00 W power limit).
+WHOLE_ARRAY_PEAK_FACTOR = 4.5
+# Rows of a chunk on the capacity route (128 MiB of words).
+STREAM_CHUNK_ROWS = CHUNK_ROWS
+# Device memory the capacity gate leaves to the caller and the allocator:
+# what the caller holds beside the transform (its own input on the device,
+# for one) and the caching allocator's fragmentation.
+CAPACITY_MARGIN_BYTES = 8 << 30
+
+
+def whole_array_peak(log_h: int, log_rate: int) -> int:
+    """Predicted device peak in bytes of the whole-array ``apply`` at
+    (log_h, log_rate): WHOLE_ARRAY_PEAK_FACTOR times the larger of its
+    input (2^log_h values of 16 bytes) and its output (2^log_rate times
+    that)."""
+    return int(WHOLE_ARRAY_PEAK_FACTOR * (16 << (log_h + log_rate)))
+
+
+def capacity_budget(device) -> float:
+    """Bytes a transform on ``device`` may reach: a CUDA device's
+    total_memory less CAPACITY_MARGIN_BYTES; unbounded on the CPU, where
+    the plain path takes the whole-array route."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return float("inf")
+    total = torch.cuda.get_device_properties(device).total_memory
+    return total - CAPACITY_MARGIN_BYTES
+
+
+def streams(log_h: int, log_rate: int, budget_bytes: float) -> bool:
+    """The capacity gate: True when the whole-array peak would pass the
+    budget, and ``apply`` streams its layout transforms."""
+    return whole_array_peak(log_h, log_rate) > budget_bytes
 
 
 def _stage_twiddles_multiword(constants_row, num_bits: int) -> np.ndarray:
@@ -276,13 +328,33 @@ class AdditiveNTT128(torch.nn.Module):
             if x_words.dtype != torch.int32:
                 raise ValueError(f"apply: expected int32 words, got "
                                  f"{x_words.dtype}")
-            x = x_words.to(self.device)
+            x = x_words
         else:
-            x = to_torch(np.asarray(x_words, dtype=np.uint32), self.device)
+            x = to_torch(np.asarray(x_words, dtype=np.uint32))
         if tuple(x.shape) != (n * IPV,):
             raise ValueError(
                 f"apply: input shape {tuple(x.shape)} != (2^log_h * {IPV},) "
                 f"= ({n * IPV},)")
-        sliced = bitslice_transpose(x.reshape(n // 32, W))
+        x = x.reshape(n // 32, W)
+        if streams(self.log_h, self.log_rate, capacity_budget(self.device)):
+            return self._apply_streamed(x)
+        sliced = bitslice_transpose(x.to(self.device))
         out = self.apply_sliced(sliced)
+        del sliced
         return bitslice_untranspose(out).reshape(-1)
+
+    def _apply_streamed(self, x: torch.Tensor) -> torch.Tensor:
+        """The capacity route: x (2^log_h/32, 128) unbitsliced rows, on
+        the host or the device, is uploaded and transposed chunk by chunk
+        into the sliced input; the sliced input is dropped once the
+        transform has run; the output is untransposed chunk by chunk in its
+        own buffer (each row is its own 32 x 128 transpose), so no second
+        output-sized tensor is made."""
+        sliced = bitslice_transpose_streamed(x, STREAM_CHUNK_ROWS,
+                                             device=self.device)
+        out = self.apply_sliced(sliced)
+        del sliced
+        chunk = _pick_chunk(out.shape[0], STREAM_CHUNK_ROWS)
+        for i in range(0, out.shape[0], chunk):
+            out[i:i + chunk] = bitslice_untranspose(out[i:i + chunk])
+        return out.reshape(-1)

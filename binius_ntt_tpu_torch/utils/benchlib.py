@@ -5,6 +5,11 @@ measures the enqueue.  ``device_time`` records CUDA events around each call
 on the current stream, after warm-up calls, and returns the median.  It
 refuses to run without a CUDA device: a CPU time is never reported under a
 device metric.
+
+The reference's ``setup_compile_cache`` (binius_ntt_tpu/utils/benchlib.py,
+the XLA compilation cache) has nothing to port: the kernels are built once
+into a library named by a digest of their sources and flags, kept in the
+package's ``_build/`` directory (``_build.py``), which plays that role.
 """
 
 from __future__ import annotations

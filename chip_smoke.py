@@ -155,7 +155,18 @@ run with a non-zero exit and no result line:
  25. sharded_timing — CUDA events at 2^24, r = 0 and 2, on LocalMesh(4):
      the sharded apply_sliced beside the single-device one on the same
      input, the shards' local stage-group chains with and without dplanes,
-     and the cross-device stages alone.
+     and the cross-device stages alone;
+ 26. capacity — the first 2^31-word buffers: AdditiveNTT128(29, 0).apply
+     on 2^31 mt19937 words from the native oracle (utils/native_oracle.py,
+     built with g++; the phase fails if it does not build), through the
+     capacity gate of ntt/additive_bitsliced.py, with every launch counter
+     reset just before and read just after (every stage_group launch on
+     the CHUNK32 route), held to the golden MD5 fed chunk by chunk from
+     device slices; then the same input through the streamed transforms
+     (bitslice_transpose_streamed, apply_sliced,
+     bitslice_untranspose_streamed), word-equal to apply's output; one line
+     each for the gate's route, the device's peak memory over apply, and a
+     PhaseTimer report (input, apply, hash, streamed, compare).
 
 Then three lines: the kernels as JSON, the card's name and power limit
 from nvidia-smi, and the result line
@@ -203,7 +214,9 @@ from binius_ntt_tpu_torch.fields import baby_bear as bb  # noqa: E402
 from binius_ntt_tpu_torch.fields import tower_compact as tc  # noqa: E402
 from binius_ntt_tpu_torch.fields import tower_scalar as ts  # noqa: E402
 from binius_ntt_tpu_torch.layout.bitslicing import (  # noqa: E402
-    bitslice_transpose, bitslice_untranspose)
+    bitslice_transpose, bitslice_transpose_streamed, bitslice_untranspose,
+    bitslice_untranspose_streamed)
+from binius_ntt_tpu_torch.ntt import additive_bitsliced as ab  # noqa: E402
 from binius_ntt_tpu_torch.ntt import cuda_fused as cf  # noqa: E402
 from binius_ntt_tpu_torch.ntt import cuda_fused32 as cf32  # noqa: E402
 from binius_ntt_tpu_torch.ntt import cuda_fused_bb31 as cfb  # noqa: E402
@@ -233,7 +246,9 @@ from binius_ntt_tpu_torch.utils.benchlib import device_time  # noqa: E402
 from binius_ntt_tpu_torch.utils.bits import to_numpy, to_torch  # noqa: E402
 from binius_ntt_tpu_torch.utils.capabilities import (  # noqa: E402
     check_capabilities)
+from binius_ntt_tpu_torch.utils import native_oracle  # noqa: E402
 from binius_ntt_tpu_torch.utils.mt19937 import mt19937_stream  # noqa: E402
+from binius_ntt_tpu_torch.utils.timing import PhaseTimer  # noqa: E402
 
 SEED = 0xDEADBEEF
 W = 128
@@ -398,6 +413,15 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 
 def md5_words(t: torch.Tensor) -> str:
     return hashlib.md5(to_numpy(t).astype("<u4").tobytes()).hexdigest()
+
+
+def md5_chunked(t: torch.Tensor, chunk: int = 1 << 26) -> str:
+    """md5_words of a large device tensor, fed a host copy of ``chunk``
+    words (256 MiB) at a time."""
+    flat, h = t.reshape(-1), hashlib.md5()
+    for i in range(0, flat.numel(), chunk):
+        h.update(memoryview(to_numpy(flat[i:i + chunk])))
+    return h.hexdigest()
 
 
 def load_test_file(name: str):
@@ -2077,6 +2101,91 @@ def phase_sharded_timing(smi, ntt_runs, ntts, inputs) -> dict:
     return out
 
 
+# ---- capacity (phase 26) ----
+
+def phase_capacity(dev, golden, log_h: int = 29, log_rate: int = 0) -> dict:
+    """The first 2^31-word buffers: AdditiveNTT128(29, 0).apply through the
+    capacity gate, then the explicit streamed transforms on the same
+    input."""
+    timer = PhaseTimer()
+    t0 = time.perf_counter()
+    require(native_oracle.available(),
+            "the native oracle (tools/native/oracle.cpp) did not build")
+    n_words = (1 << log_h) * 4
+    with timer.phase("input"):
+        words = native_oracle.mt19937_fill(SEED + log_h + log_rate, n_words)
+    ntt = AdditiveNTT128(log_h, log_rate, device=dev)
+    say("capacity", f"set-up: {n_words} mt19937 words from the native "
+        f"oracle in {timer.phases['input']:.1f} s, tables "
+        f"{time.perf_counter() - t0 - timer.phases['input']:.1f} s host")
+    budget = ab.capacity_budget(dev)
+    streamed = ab.streams(log_h, log_rate, budget)
+    say("capacity", f"gate: route {'streamed' if streamed else 'whole'} "
+        f"(predicted whole-array peak "
+        f"{ab.whole_array_peak(log_h, log_rate) / 2**30:.2f} GiB = "
+        f"{ab.WHOLE_ARRAY_PEAK_FACTOR} x the larger buffer, budget "
+        f"{budget / 2**30:.2f} GiB)")
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = []
+    with timer.phase("apply", block_on=out):
+        out.append(ntt.apply(words))
+    launches = {"stage_group": cf.stage_group.launches}
+    others = sum(w.launches for w in COUNTED) - launches["stage_group"]
+    routes = dict(cf.stage_group.route_launches)
+    peak = torch.cuda.max_memory_allocated()
+    out = out[0]
+    require(launches["stage_group"] > 0 and others == 0,
+            f"capacity: stage_group launched {launches['stage_group']} "
+            f"times and {others} other launches")
+    require(routes == {"chunk32": launches["stage_group"], "general": 0},
+            f"capacity: every stage_group launch must take the CHUNK32 "
+            f"route: {routes}")
+    n_out = n_words << log_rate
+    require(tuple(out.shape) == (n_out,), f"capacity: output shape "
+            f"{tuple(out.shape)} != ({n_out},)")
+    say("capacity", f"peak device memory over apply {peak} B "
+        f"({peak / 2**30:.2f} GiB), of it {base} B allocated before (the "
+        f"module's tables and earlier phases'); apply's own "
+        f"{(peak - base) / (n_out * 4):.2f} x the output buffer")
+    with timer.phase("hash"):
+        digest = md5_chunked(out)
+    want = golden[log_rate][log_h]
+    require(digest == want, f"capacity: ({log_h}, {log_rate}) digest "
+            f"{digest} != golden {want}")
+    say("capacity", f"AdditiveNTT128({log_h}, {log_rate}).apply: golden MD5 "
+        f"{digest} matches (fed chunk by chunk from device slices); "
+        f"launches {launches}, stage_group by route {routes}")
+
+    with timer.phase("streamed"):
+        sliced = bitslice_transpose_streamed(words.reshape(-1, W),
+                                             device=dev)
+        res = ntt.apply_sliced(sliced)
+        del sliced
+        host = bitslice_untranspose_streamed(res).reshape(-1)
+        del res
+    with timer.phase("compare"):
+        flat, step, same = out.reshape(-1), 1 << 26, True
+        for i in range(0, n_out, step):
+            same &= bool(np.array_equal(to_numpy(flat[i:i + step]),
+                                        host[i:i + step]))
+    require(same, "capacity: the streamed transforms' output differs from "
+            "apply's")
+    say("capacity", "bitslice_transpose_streamed -> apply_sliced -> "
+        "bitslice_untranspose_streamed: word-equal to apply's output")
+    say("capacity", "phases: " + timer.report().replace("\n", "; "))
+    del out, host, words, ntt
+    torch.cuda.empty_cache()
+    return {"launches": launches["stage_group"], "route_launches": routes,
+            "route": "streamed" if streamed else "whole",
+            "peak_bytes": peak, "allocated_before_bytes": base,
+            "digest": digest, "phases_ms": {
+                k: v * 1e3 for k, v in timer.phases.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an sm_90 "
@@ -2133,6 +2242,9 @@ def main() -> int:
     del sh_ntts, sh_inputs
     say("sharded_timing", f"phases 23-25 took "
         f"{time.perf_counter() - t23:.1f} s")
+    t26 = time.perf_counter()
+    cap = phase_capacity(dev, golden)
+    say("capacity", f"phase 26 took {time.perf_counter() - t26:.1f} s")
 
     # bounds of the earlier kernels, from the shapes of their timed calls:
     # 2^24 points (rate 0) for the NTT chains, the sumcheck's first round
@@ -2245,6 +2357,14 @@ def main() -> int:
                     r: t["apply_ms"] for r, t in sh_timing.items()},
                 "single_apply_ms_by_rate": {
                     r: t["single_apply_ms"] for r, t in sh_timing.items()}},
+            "capacity": {
+                "launches": cap["launches"],
+                "route_launches": cap["route_launches"],
+                "shape": "AdditiveNTT128(29, 0).apply, 2^31 words in and "
+                         "out",
+                "gate_route": cap["route"], "peak_bytes": cap["peak_bytes"],
+                "allocated_before_bytes": cap["allocated_before_bytes"],
+                "phases_ms": cap["phases_ms"]},
             **{k: timing[0][k] for k in ("bound_ms", "bound_by",
                                          "library_ms")}},
             sumcheck_entry("round", 175), sumcheck_entry("fold", 294),

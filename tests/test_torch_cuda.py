@@ -27,8 +27,11 @@ from binius_ntt_tpu_torch import (AdditiveNTT, AdditiveNTT128, NTTRadix2,
                                   tower_compact)
 from binius_ntt_tpu_torch.fields import baby_bear as bb
 from binius_ntt_tpu_torch.fields import tower_scalar
-from binius_ntt_tpu_torch.layout.bitslicing import (bitslice_transpose,
-                                                    bitslice_untranspose)
+from binius_ntt_tpu_torch.layout.bitslicing import (
+    bitslice_transpose, bitslice_transpose_streamed,
+    bitslice_transpose_streamed_cols, bitslice_untranspose,
+    bitslice_untranspose_streamed)
+from binius_ntt_tpu_torch.ntt import additive_bitsliced as ab
 from binius_ntt_tpu_torch.ntt import cuda_fused as cf
 from binius_ntt_tpu_torch.ntt import cuda_fused32 as cf32
 from binius_ntt_tpu_torch.ntt import cuda_fused_bb31 as cfb
@@ -923,3 +926,40 @@ def test_sharded_ntt128_on_card(dev, log_h, log_rate, fused):
     assert got.device.type == "cuda" and torch.equal(got, want)
     assert ck.mul_tiles.launches > mul0
     assert (cf.stage_group.dplanes_launches > sg0) == fused
+
+
+@pytest.mark.parametrize("w", [32, 128])
+@pytest.mark.parametrize("rows,chunk_rows", [(96, 32), (1 << 16, 1 << 12),
+                                             (64, 1 << 18)])
+def test_streamed_transforms_on_card(dev, w, rows, chunk_rows):
+    """Each streamed transform, chunk by chunk through the card, equals the
+    whole-array transform."""
+    rng = np.random.default_rng(rows + w)
+    host = rng.integers(0, 1 << 32, (rows, w), dtype=np.uint32)
+    whole = bitslice_transpose(to_torch(host, dev))
+    got = bitslice_transpose_streamed(host, chunk_rows, device=dev)
+    assert got.device == whole.device and torch.equal(got, whole)
+    back = bitslice_untranspose_streamed(got, chunk_rows)
+    assert isinstance(back, np.ndarray) and np.array_equal(back, host)
+    cols = rng.integers(0, 1 << 32, (2, rows, w), dtype=np.uint32)
+    got = bitslice_transpose_streamed_cols(cols, chunk_rows, device=dev)
+    assert torch.equal(got, bitslice_transpose(to_torch(cols, dev)))
+
+
+@pytest.mark.parametrize("fused", [None, False])
+@pytest.mark.parametrize("log_rate", [0, 2])
+@pytest.mark.parametrize("on_card", [False, True])
+def test_forced_capacity_route_golden_on_card(dev, monkeypatch, fused,
+                                              log_rate, on_card):
+    """AdditiveNTT128(16, r).apply on the capacity route (budget lowered,
+    2^11 rows in chunks of 256) from host words and from card words: the
+    golden digest, an int32 output on the card."""
+    monkeypatch.setattr(ab, "capacity_budget", lambda device: 0)
+    monkeypatch.setattr(ab, "STREAM_CHUNK_ROWS", 256)
+    words = _words(16, log_rate)
+    ntt = AdditiveNTT128(16, log_rate, use_fused=fused, device=dev)
+    out = ntt.apply(to_torch(words, dev) if on_card else words)
+    assert out.device.type == "cuda" and out.dtype == torch.int32
+    assert out.shape == ((1 << (16 + log_rate)) * 4,)
+    digest = hashlib.md5(to_numpy(out).astype("<u4").tobytes()).hexdigest()
+    assert digest == ADDITIVE_NTT128_HASHES[log_rate][16]
