@@ -156,17 +156,22 @@ run with a non-zero exit and no result line:
      the sharded apply_sliced beside the single-device one on the same
      input, the shards' local stage-group chains with and without dplanes,
      and the cross-device stages alone;
- 26. capacity — the first 2^31-word buffers: AdditiveNTT128(29, 0).apply
-     on 2^31 mt19937 words from the native oracle (utils/native_oracle.py,
-     built with g++; the phase fails if it does not build), through the
-     capacity gate of ntt/additive_bitsliced.py, with every launch counter
-     reset just before and read just after (every stage_group launch on
-     the CHUNK32 route), held to the golden MD5 fed chunk by chunk from
-     device slices; then the same input through the streamed transforms
+ 26. capacity — the capacity route at the first 2^32-word output:
+     AdditiveNTT128(28, 2).apply on 2^30 mt19937 words from the native
+     oracle (utils/native_oracle.py, built with g++; the phase fails if it
+     does not build), through the capacity gate of
+     ntt/additive_bitsliced.py with the card's own budget: the phase
+     prints the card's total memory, the gate's prediction and budget,
+     and fails unless the gate chose the capacity route (streamed layout
+     transforms); every launch counter reset just before and read just
+     after (every stage_group launch on the CHUNK32 route), the output of
+     shape (2^32,) held to the golden MD5 (tests/test_torch_golden_tail.py)
+     fed chunk by chunk from device slices, and the peak device memory
+     over apply printed beside its prediction (the sliced input plus the
+     output); then the same input through the streamed transforms
      (bitslice_transpose_streamed, apply_sliced,
-     bitslice_untranspose_streamed), word-equal to apply's output; one line
-     each for the gate's route, the device's peak memory over apply, and a
-     PhaseTimer report (input, apply, hash, streamed, compare).
+     bitslice_untranspose_streamed), word-equal to apply's output chunk by
+     chunk; a PhaseTimer report (input, apply, hash, streamed, compare).
 
 Then three lines: the kernels as JSON, the card's name and power limit
 from nvidia-smi, and the result line
@@ -191,7 +196,6 @@ The script imports no JAX.
 from __future__ import annotations
 
 import contextlib
-import hashlib
 import importlib.util
 import json
 import statistics
@@ -242,7 +246,8 @@ from binius_ntt_tpu_torch.sumcheck import cuda_round as cr  # noqa: E402
 from binius_ntt_tpu_torch.sumcheck import verifier  # noqa: E402
 from binius_ntt_tpu_torch.sumcheck.prime_field import (  # noqa: E402
     check_transcript)
-from binius_ntt_tpu_torch.utils.benchlib import device_time  # noqa: E402
+from binius_ntt_tpu_torch.utils.benchlib import (  # noqa: E402
+    device_time, md5_words)
 from binius_ntt_tpu_torch.utils.bits import to_numpy, to_torch  # noqa: E402
 from binius_ntt_tpu_torch.utils.capabilities import (  # noqa: E402
     check_capabilities)
@@ -411,19 +416,6 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((da - db).abs().max().item())
 
 
-def md5_words(t: torch.Tensor) -> str:
-    return hashlib.md5(to_numpy(t).astype("<u4").tobytes()).hexdigest()
-
-
-def md5_chunked(t: torch.Tensor, chunk: int = 1 << 26) -> str:
-    """md5_words of a large device tensor, fed a host copy of ``chunk``
-    words (256 MiB) at a time."""
-    flat, h = t.reshape(-1), hashlib.md5()
-    for i in range(0, flat.numel(), chunk):
-        h.update(memoryview(to_numpy(flat[i:i + chunk])))
-    return h.hexdigest()
-
-
 def load_test_file(name: str):
     """A JAX-free module of tests/, loaded by path."""
     spec = importlib.util.spec_from_file_location(
@@ -434,7 +426,8 @@ def load_test_file(name: str):
 
 
 def golden_table():
-    return load_test_file("golden_hashes_oracle").ADDITIVE_NTT128_HASHES
+    """The GF(2^128) digests: the oracle table and the port's own."""
+    return load_test_file("test_torch_golden_tail").ntt128_hashes()
 
 
 def golden32_table():
@@ -2103,10 +2096,10 @@ def phase_sharded_timing(smi, ntt_runs, ntts, inputs) -> dict:
 
 # ---- capacity (phase 26) ----
 
-def phase_capacity(dev, golden, log_h: int = 29, log_rate: int = 0) -> dict:
-    """The first 2^31-word buffers: AdditiveNTT128(29, 0).apply through the
-    capacity gate, then the explicit streamed transforms on the same
-    input."""
+def phase_capacity(dev, golden, log_h: int = 28, log_rate: int = 2) -> dict:
+    """The capacity route at the first 2^32-word output:
+    AdditiveNTT128(28, 2).apply as the capacity gate routes it on this
+    card, then the explicit streamed transforms on the same input."""
     timer = PhaseTimer()
     t0 = time.perf_counter()
     require(native_oracle.available(),
@@ -2118,13 +2111,19 @@ def phase_capacity(dev, golden, log_h: int = 29, log_rate: int = 0) -> dict:
     say("capacity", f"set-up: {n_words} mt19937 words from the native "
         f"oracle in {timer.phases['input']:.1f} s, tables "
         f"{time.perf_counter() - t0 - timer.phases['input']:.1f} s host")
+    total = torch.cuda.get_device_properties(dev).total_memory
     budget = ab.capacity_budget(dev)
+    predicted = ab.whole_array_peak(log_h, log_rate)
     streamed = ab.streams(log_h, log_rate, budget)
     say("capacity", f"gate: route {'streamed' if streamed else 'whole'} "
-        f"(predicted whole-array peak "
-        f"{ab.whole_array_peak(log_h, log_rate) / 2**30:.2f} GiB = "
+        f"(predicted whole-array peak {predicted} B = "
         f"{ab.WHOLE_ARRAY_PEAK_FACTOR} x the larger buffer, budget "
-        f"{budget / 2**30:.2f} GiB)")
+        f"{budget} B = total_memory {total} B less "
+        f"{ab.CAPACITY_MARGIN_BYTES} B)")
+    require(streamed, f"capacity: the gate kept ({log_h}, {log_rate}) on "
+            f"the whole-array route; this phase runs the capacity route")
+    # the capacity route's peak: the sliced input and the output
+    in_bytes, out_bytes = 16 << log_h, 16 << (log_h + log_rate)
 
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -2147,12 +2146,14 @@ def phase_capacity(dev, golden, log_h: int = 29, log_rate: int = 0) -> dict:
     n_out = n_words << log_rate
     require(tuple(out.shape) == (n_out,), f"capacity: output shape "
             f"{tuple(out.shape)} != ({n_out},)")
-    say("capacity", f"peak device memory over apply {peak} B "
-        f"({peak / 2**30:.2f} GiB), of it {base} B allocated before (the "
-        f"module's tables and earlier phases'); apply's own "
-        f"{(peak - base) / (n_out * 4):.2f} x the output buffer")
+    say("capacity", f"peak device memory over apply {peak} B, of it "
+        f"{base} B allocated before (the module's tables and earlier "
+        f"phases'); apply's own {peak - base} B against the predicted "
+        f"{in_bytes + out_bytes} B (the sliced input {in_bytes} B plus the "
+        f"output {out_bytes} B), {(peak - base) / out_bytes:.3f} x the "
+        f"output buffer")
     with timer.phase("hash"):
-        digest = md5_chunked(out)
+        digest = md5_words(out)
     want = golden[log_rate][log_h]
     require(digest == want, f"capacity: ({log_h}, {log_rate}) digest "
             f"{digest} != golden {want}")
@@ -2180,7 +2181,7 @@ def phase_capacity(dev, golden, log_h: int = 29, log_rate: int = 0) -> dict:
     del out, host, words, ntt
     torch.cuda.empty_cache()
     return {"launches": launches["stage_group"], "route_launches": routes,
-            "route": "streamed" if streamed else "whole",
+            "route": "streamed", "total_memory_bytes": total,
             "peak_bytes": peak, "allocated_before_bytes": base,
             "digest": digest, "phases_ms": {
                 k: v * 1e3 for k, v in timer.phases.items()}}
@@ -2360,10 +2361,11 @@ def main() -> int:
             "capacity": {
                 "launches": cap["launches"],
                 "route_launches": cap["route_launches"],
-                "shape": "AdditiveNTT128(29, 0).apply, 2^31 words in and "
-                         "out",
-                "gate_route": cap["route"], "peak_bytes": cap["peak_bytes"],
-                "allocated_before_bytes": cap["allocated_before_bytes"],
+                "shape": "AdditiveNTT128(28, 2).apply, 2^30 words in, "
+                         "2^32 out",
+                "gate_route": cap["route"],
+                **{k: cap[k] for k in (
+                    "total_memory_bytes", "peak_bytes", "allocated_before_bytes")},
                 "phases_ms": cap["phases_ms"]},
             **{k: timing[0][k] for k in ("bound_ms", "bound_by",
                                          "library_ms")}},

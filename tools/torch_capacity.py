@@ -16,10 +16,14 @@ passed, and the card's name and power limit.  Checks:
             input and output buffers (what WHOLE_ARRAY_PEAK_FACTOR in
             ntt/additive_bitsliced.py is set from), each output held to
             its golden digest (tests/golden_hashes_oracle.py);
-  ntt128    AdditiveNTT128 fused, through the capacity gate, at 2^28 r0 and
-            2^27 r2, and at 2^28 r0 again on the capacity route (the
-            budget set to 0), against the golden digests, with the route
-            the gate took and apply_sliced timed on the device;
+  ntt128    AdditiveNTT128 fused, through the capacity gate with the card's
+            own budget, at 2^28 r0, 2^27 r2 and 2^29 r0 (the whole-array
+            route) and at 2^28 r2 (the capacity route: 2^32 output words),
+            and at 2^28 r0 again on the capacity route (the budget set to
+            0), against the golden digests (tests/test_torch_golden_tail.py
+            lays the port's own over the oracle's), each with the route
+            the gate took, which must be the one listed, the peak over
+            apply and apply_sliced timed on the device;
   per_stage AdditiveNTT128(28, 0, use_fused=False): the first 2^30-word
             buffers through butterfly_high and butterfly_low, against the
             golden digest, every launch on its CHUNK32 route;
@@ -42,7 +46,6 @@ copied to the host whole.  Exits non-zero if any check failed.
 from __future__ import annotations
 
 import argparse
-import hashlib
 import importlib.util
 import json
 import sys
@@ -65,20 +68,24 @@ from binius_ntt_tpu_torch.ntt import cuda_kernels as ck  # noqa: E402
 from binius_ntt_tpu_torch.sumcheck import cuda_round as cr  # noqa: E402
 from binius_ntt_tpu_torch.sumcheck import verifier  # noqa: E402
 from binius_ntt_tpu_torch.utils import native_oracle  # noqa: E402
-from binius_ntt_tpu_torch.utils.benchlib import device_time  # noqa: E402
-from binius_ntt_tpu_torch.utils.bits import to_numpy, to_torch  # noqa: E402
+from binius_ntt_tpu_torch.utils.benchlib import (  # noqa: E402
+    device_time, md5_words)
+from binius_ntt_tpu_torch.utils.bits import to_torch  # noqa: E402
 from binius_ntt_tpu_torch.utils.timing import PhaseTimer  # noqa: E402
 from ab_common import card  # noqa: E402
 
 SEED = 0xDEADBEEF
 W = 128
-HASH_CHUNK_WORDS = 1 << 26      # 256 MiB of output a host copy
 PLAIN_CHUNK_ROWS = 1 << 16      # row pairs a plain sumcheck round or fold
 DEV = torch.device("cuda", 0)
 # the sizes of each check, (log_h, log_rate)
 PEAK_SIZES = ((24, 0), (26, 0), (27, 0), (26, 2), (28, 0))
-# (log_h, log_rate, capacity route forced: the budget set to 0)
-NTT128_SIZES = ((28, 0, False), (27, 2, False), (28, 0, True))
+# (log_h, log_rate, capacity route forced: the budget set to 0); on an
+# 80 GB card the gate streams (28, 2) and keeps the others whole
+NTT128_SIZES = ((28, 0, False), (27, 2, False), (29, 0, False),
+                (28, 2, False), (28, 0, True))
+# the sizes the gate must stream on an 80 GB card (test_torch_streamed_layout)
+STREAMED_SIZES = {(28, 2)}
 PER_STAGE_SIZE = (28, 0)
 NTT32_SIZES = ((28, 0), (30, 0), (27, 2))
 SUMCHECK_VARS, SUMCHECK_COMP = 28, 2
@@ -92,14 +99,9 @@ def load_test_file(name: str):
     return mod
 
 
-def md5_device(t: torch.Tensor) -> str:
-    """MD5 of a device tensor's words, little-endian, fed a host copy of
-    HASH_CHUNK_WORDS at a time."""
-    flat = t.reshape(-1)
-    h = hashlib.md5()
-    for i in range(0, flat.numel(), HASH_CHUNK_WORDS):
-        h.update(memoryview(to_numpy(flat[i:i + HASH_CHUNK_WORDS])))
-    return h.hexdigest()
+def golden_table() -> dict:
+    """The GF(2^128) digests: the oracle table and the port's own."""
+    return load_test_file("test_torch_golden_tail").ntt128_hashes()
 
 
 def mt_words(log_h: int, log_rate: int, ipv: int) -> np.ndarray:
@@ -145,7 +147,7 @@ def ntt128_run(c: Check, ntt, words, want: str) -> torch.Tensor:
     with c.timer.phase("apply", block_on=out):
         out.append(ntt.apply(words))
     with c.timer.phase("hash"):
-        got = md5_device(out[0])
+        got = md5_words(out[0])
     c.rec.update(md5=got, golden=want, passed=got == want)
     return out[0]
 
@@ -196,6 +198,8 @@ def check_ntt128(args):
             ntt = AdditiveNTT128(log_h, log_rate, device=DEV)
             streamed = ab.streams(log_h, log_rate, budget)
             cf.stage_group.route_launches = {"chunk32": 0, "general": 0}
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             try:
                 out = ntt128_run(c, ntt, words,
                                  args.golden[log_rate][log_h])
@@ -203,12 +207,17 @@ def check_ntt128(args):
                 ab.capacity_budget = gate
             routes = dict(cf.stage_group.route_launches)
             del out, words
+            in_b, out_b = 16 << log_h, 16 << (log_h + log_rate)
             c.rec.update(route="streamed" if streamed else "whole",
-                         predicted_peak_bytes=ab.whole_array_peak(
+                         whole_array_peak_bytes=ab.whole_array_peak(
                              log_h, log_rate),
                          budget_bytes=budget, stage_group_routes=routes,
+                         apply_peak_bytes=torch.cuda.max_memory_allocated()
+                         - base, in_bytes=in_b, out_bytes=out_b,
                          apply_sliced_ms=apply_sliced_ms(ntt, log_h))
             c.rec["passed"] &= routes["general"] == 0 < routes["chunk32"]
+            c.rec["passed"] &= streamed == (
+                forced or (log_h, log_rate) in STREAMED_SIZES)
             del ntt
 
 
@@ -242,7 +251,7 @@ def check_ntt32(args):
             with c.timer.phase("apply", block_on=out):
                 out.append(ntt.apply(words))
             with c.timer.phase("hash"):
-                got = md5_device(out[0])
+                got = md5_words(out[0])
             want = args.golden32[log_rate][log_h]
             c.rec.update(md5=got, golden=want, passed=got == want,
                          plan=[(t0, k, low) for t0, k, low, _ in ntt.tables])
@@ -375,8 +384,7 @@ def main() -> int:
     args.smi = card()
     print(f"[card] {args.smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
-    args.golden = load_test_file(
-        "golden_hashes_oracle").ADDITIVE_NTT128_HASHES
+    args.golden = golden_table()
     args.golden32 = load_test_file("golden_hashes").ADDITIVE_NTT_HASHES
     args.results = []
     for name in args.checks:
