@@ -22,6 +22,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from .utils.timing import span
+
 __all__ = ["library", "check", "build_info", "kernel_usage"]
 
 _PKG = Path(__file__).resolve().parent
@@ -115,14 +117,17 @@ def _compile() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The kernels' shared library, built on the first call."""
+    """The kernels' shared library, built on the first call (a
+    ``setup.build`` span, utils/timing.py: the build or the load of the
+    library already on disk)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(_compile()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
+        with span("setup.build"):
+            lib = ctypes.CDLL(str(_compile()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 

@@ -34,6 +34,11 @@ transposes and untransposes in chunks of rows instead
 (:func:`streams`).  The reference's gate (a fixed 14e9 bytes, sized for a
 15.75 GB TPU) is not carried over.
 
+Spans (utils/timing.py, when on): ``ntt.apply`` over ``apply``, in it
+``ntt.layout_in`` (the transpose in, with its move to the device),
+``ntt.chain`` (``apply_sliced``'s kernels) and ``ntt.layout_out`` (the
+transpose out); ``setup.tables`` over the host tables' build.
+
 Not ported: ``use_pallas`` (the tensor's device picks kernel or plain
 version).
 """
@@ -49,6 +54,7 @@ from ..layout.bitslicing import (CHUNK_ROWS, _pick_chunk,
                                  bitslice_untranspose)
 from ..utils.bits import to_torch
 from ..utils.capabilities import default_device
+from ..utils.timing import span
 from . import cuda_fused, cuda_kernels
 from .additive import precompute_subspace_evals
 from .nttdata import DataOrder, NTTData
@@ -234,9 +240,14 @@ class AdditiveNTT128(torch.nn.Module):
         self.log_rate = log_rate
         self.use_fused = log_h >= 6 if use_fused is None else bool(use_fused)
         device = default_device(device)
-        rows = precompute_subspace_evals(log_h, log_rate, HEIGHT)
         self._groups = []
         self.chunk32 = {}          # the per-stage path's routes by stage
+        with span("setup.tables"):
+            self._build_tables(device)
+
+    def _build_tables(self, device) -> None:
+        log_h, log_rate = self.log_h, self.log_rate
+        rows = precompute_subspace_evals(log_h, log_rate, HEIGHT)
         if self.use_fused:
             tables = cuda_fused.build_tables(rows, log_h, log_rate, device)
             for g, (t0, k, low, mtile, minst, lanes, zero,
@@ -305,12 +316,13 @@ class AdditiveNTT128(torch.nn.Module):
                 f"apply_sliced: expected ({nb}, {W}) int32 on "
                 f"{self.device}, got {tuple(data.shape)} {data.dtype} on "
                 f"{data.device}")
-        if self.use_fused:
-            return cuda_fused.apply_fused(data.contiguous(), self.tables,
-                                          log_rate=self.log_rate)
-        return apply_per_stage(data, *self.stage_tables,
-                               log_rate=self.log_rate,
-                               chunk32=self.chunk32)
+        with span("ntt.chain", data.device):
+            if self.use_fused:
+                return cuda_fused.apply_fused(data.contiguous(), self.tables,
+                                              log_rate=self.log_rate)
+            return apply_per_stage(data, *self.stage_tables,
+                                   log_rate=self.log_rate,
+                                   chunk32=self.chunk32)
 
     def apply(self, x_words):
         """Compact interface: (2^log_h * 4,) words, little-endian
@@ -323,6 +335,10 @@ class AdditiveNTT128(torch.nn.Module):
                 raise ValueError("AdditiveNTT128.apply requires IN_ORDER "
                                  "input")
             return NTTData(self.apply(x_words.data), DataOrder.IN_ORDER)
+        with span("ntt.apply", self.device):
+            return self._apply_words(x_words)
+
+    def _apply_words(self, x_words):
         n = 1 << self.log_h
         if isinstance(x_words, torch.Tensor):
             if x_words.dtype != torch.int32:
@@ -336,12 +352,15 @@ class AdditiveNTT128(torch.nn.Module):
                 f"apply: input shape {tuple(x.shape)} != (2^log_h * {IPV},) "
                 f"= ({n * IPV},)")
         x = x.reshape(n // 32, W)
-        if streams(self.log_h, self.log_rate, capacity_budget(self.device)):
+        device = self.device
+        if streams(self.log_h, self.log_rate, capacity_budget(device)):
             return self._apply_streamed(x)
-        sliced = bitslice_transpose(x.to(self.device))
+        with span("ntt.layout_in", device):
+            sliced = bitslice_transpose(x.to(device))
         out = self.apply_sliced(sliced)
         del sliced
-        return bitslice_untranspose(out).reshape(-1)
+        with span("ntt.layout_out", device):
+            return bitslice_untranspose(out).reshape(-1)
 
     def _apply_streamed(self, x: torch.Tensor) -> torch.Tensor:
         """The capacity route: x (2^log_h/32, 128) unbitsliced rows, on
@@ -350,11 +369,14 @@ class AdditiveNTT128(torch.nn.Module):
         transform has run; the output is untransposed chunk by chunk in its
         own buffer (each row is its own 32 x 128 transpose), so no second
         output-sized tensor is made."""
-        sliced = bitslice_transpose_streamed(x, STREAM_CHUNK_ROWS,
-                                             device=self.device)
+        device = self.device
+        with span("ntt.layout_in", device):
+            sliced = bitslice_transpose_streamed(x, STREAM_CHUNK_ROWS,
+                                                 device=device)
         out = self.apply_sliced(sliced)
         del sliced
-        chunk = _pick_chunk(out.shape[0], STREAM_CHUNK_ROWS)
-        for i in range(0, out.shape[0], chunk):
-            out[i:i + chunk] = bitslice_untranspose(out[i:i + chunk])
-        return out.reshape(-1)
+        with span("ntt.layout_out", device):
+            chunk = _pick_chunk(out.shape[0], STREAM_CHUNK_ROWS)
+            for i in range(0, out.shape[0], chunk):
+                out[i:i + chunk] = bitslice_untranspose(out[i:i + chunk])
+            return out.reshape(-1)

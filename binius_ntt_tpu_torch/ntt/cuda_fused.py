@@ -48,6 +48,7 @@ import torch
 from .. import _build
 from ..fields import bitsliced
 from ..utils.bits import lsr, to_torch, u32
+from ..utils.timing import span
 
 __all__ = ["KB", "KU", "PT", "SUB_PLANES", "plan_groups",
            "make_group_tables", "make_group_tables_sharded",
@@ -409,26 +410,29 @@ def stage_group(x, mtile, minst, lanes, *, t0: int, k: int,
     ``chunk32`` (the tables' :func:`subfield_tables`, which the caller
     vouches for), else the general one.  ``launches`` counts every launch,
     ``route_launches`` each route's, ``dplanes_launches`` those given
-    ``dplanes``.
+    ``dplanes``.  Each call is an ``ntt.stage_group`` span (utils/timing.py)
+    with the group's t0, k, include_low and whether it has dplanes.
     """
-    if x.device.type == "cpu":
-        return stage_group_plain(x, mtile, minst, lanes, t0=t0, k=k,
-                                 include_low=include_low,
-                                 zero_flags=zero_flags, dplanes=dplanes)
-    if x.device.type != "cuda":
-        raise ValueError(f"stage_group: unsupported device {x.device}")
-    n_inst, post = _group_geometry(x, mtile, minst, lanes, t0, k,
-                                   include_low, dplanes)
-    cols = chunk32_cols(k, post) if chunk32 else min(PT, post)
-    zero_mask = sum(1 << st for st, z in enumerate(zero_flags) if z)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        rc = lib.bntt_stage_group(
-            x.data_ptr(), mtile.data_ptr(), minst.data_ptr(),
-            lanes.data_ptr() if include_low else None,
-            None if dplanes is None else dplanes.data_ptr(), n_inst, k,
-            post, cols, int(include_low), zero_mask, int(chunk32),
-            torch.cuda.current_stream().cuda_stream)
+    with span("ntt.stage_group", x.device, t0=t0, k=k,
+              include_low=include_low, dplanes=dplanes is not None):
+        if x.device.type == "cpu":
+            return stage_group_plain(x, mtile, minst, lanes, t0=t0, k=k,
+                                     include_low=include_low,
+                                     zero_flags=zero_flags, dplanes=dplanes)
+        if x.device.type != "cuda":
+            raise ValueError(f"stage_group: unsupported device {x.device}")
+        n_inst, post = _group_geometry(x, mtile, minst, lanes, t0, k,
+                                       include_low, dplanes)
+        cols = chunk32_cols(k, post) if chunk32 else min(PT, post)
+        zero_mask = sum(1 << st for st, z in enumerate(zero_flags) if z)
+        lib = _build.library()
+        with torch.cuda.device(x.device):
+            rc = lib.bntt_stage_group(
+                x.data_ptr(), mtile.data_ptr(), minst.data_ptr(),
+                lanes.data_ptr() if include_low else None,
+                None if dplanes is None else dplanes.data_ptr(), n_inst, k,
+                post, cols, int(include_low), zero_mask, int(chunk32),
+                torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "stage_group")
     stage_group.launches += 1
     stage_group.route_launches["chunk32" if chunk32 else "general"] += 1

@@ -27,6 +27,13 @@ Stage s pairs batches 2^(s-5) apart:
 The output is the single-device ``AdditiveNTT128.apply_sliced``'s: cosets
 * nb rows, coset-major.  On a CUDA device every product and group is a
 kernel launch; on the CPU the wrappers run their plain versions.
+
+Spans (utils/timing.py, when on): ``sharded.apply_shards``, in it
+``sharded.cross_stages`` (with the exchanges and bytes sent in its body
+as counts, from the mesh's counters) and in that, for every half,
+``sharded.exchange_wait`` (the wait for the half to arrive: on the
+card, how long the stream stalls for it) and ``sharded.cross_mul`` (its
+twiddle, product and XOR); ``setup.tables`` over the tables' build.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from ..ntt.additive import precompute_subspace_evals
 from ..ntt.additive_bitsliced import HEIGHT, IPV, W, per_stage_tables
 from ..fields.tower_simd import MASKS
 from ..utils.bits import lsr, u32
+from ..utils.timing import span
 
 __all__ = ["ShardedAdditiveNTT128", "OVERLAP_HALVES", "shard_dplanes"]
 
@@ -82,6 +90,11 @@ class ShardedAdditiveNTT128:
         self.use_fused = bool(use_fused)
         self.nb = nb
         self.sb = nb // n_dev
+        with span("setup.tables"):
+            self._build_tables()
+
+    def _build_tables(self) -> None:
+        log_h, log_rate, mesh = self.log_h, self.log_rate, self.mesh
         dev = mesh.device
         rows = precompute_subspace_evals(log_h, log_rate, HEIGHT)
         cross_lo = log_h - self.log_d          # first cross-device stage
@@ -146,13 +159,14 @@ class ShardedAdditiveNTT128:
     def apply_shards(self, xs: dict) -> dict:
         """The transform on sharded data, {d: (C, Sb, 128)} in, the same out
         (the local stages work in place)."""
-        xs = self.cross_stages(xs)
-        for d in self.mesh.shards:
-            if self.use_fused:
-                self.local_groups(xs[d], d)
-            else:
-                xs[d] = self.local_stages(xs[d], d)
-        return xs
+        with span("sharded.apply_shards", self.mesh.device):
+            xs = self.cross_stages(xs)
+            for d in self.mesh.shards:
+                if self.use_fused:
+                    self.local_groups(xs[d], d)
+                else:
+                    xs[d] = self.local_stages(xs[d], d)
+            return xs
 
     def cross_stages(self, xs: dict) -> dict:
         """The top log_d stages: one exchange a stage (in OVERLAP_HALVES
@@ -160,7 +174,16 @@ class ShardedAdditiveNTT128:
         half's product as soon as that half has arrived."""
         if self.log_d == 0:
             return xs
-        sb, log_h = self.sb, self.log_h
+        mesh = self.mesh
+        sent, sent_bytes = mesh.exchanges, mesh.exchange_bytes
+        with span("sharded.cross_stages", mesh.device) as sp:
+            out = self._cross_stages(xs)
+            sp.add("exchanges", mesh.exchanges - sent)
+            sp.add("exchange_bytes", mesh.exchange_bytes - sent_bytes)
+        return out
+
+    def _cross_stages(self, xs: dict) -> dict:
+        sb, log_h, mesh = self.sb, self.log_h, self.mesh
         cross_lo = log_h - self.log_d
         nh = OVERLAP_HALVES if sb % OVERLAP_HALVES == 0 else 1
         hb = sb // nh
@@ -168,23 +191,25 @@ class ShardedAdditiveNTT128:
                      for i in range(nh)] for d, x in xs.items()}
         for s in range(log_h - 1, cross_lo - 1, -1):
             bit = s - cross_lo
-            pending = self.mesh.exchange_async(parts, 1 << bit)
+            pending = mesh.exchange_async(parts, 1 << bit)
             new = {}
-            for d in self.mesh.shards:
+            for d in mesh.shards:
                 i_am_v = (d >> bit) & 1
                 w = self._cross[s, d]
                 new[d] = []
                 for p, arrived in zip(parts[d], pending[d]):
-                    recv = arrived.wait()     # the later halves fly on
+                    with span("sharded.exchange_wait", mesh.device):
+                        recv = arrived.wait()   # the later halves fly on
                     # one product serves both sides: the u side needs w *
                     # recv, the v side w * its own half
-                    v = p if i_am_v else recv
-                    wp = _rows(w[:, None, :].expand(p.shape))
-                    m = ck.mul_tiles(wp, _rows(v)).view(p.shape)
-                    new[d].append((recv ^ m) ^ p if i_am_v else p ^ m)
+                    with span("sharded.cross_mul", mesh.device):
+                        v = p if i_am_v else recv
+                        wp = _rows(w[:, None, :].expand(p.shape))
+                        m = ck.mul_tiles(wp, _rows(v)).view(p.shape)
+                        new[d].append((recv ^ m) ^ p if i_am_v else p ^ m)
             parts = new
         return {d: torch.cat(parts[d], dim=1) if nh > 1 else parts[d][0]
-                for d in self.mesh.shards}
+                for d in mesh.shards}
 
     def local_groups(self, x: torch.Tensor, d: int) -> torch.Tensor:
         """Shard d's local stages as stage groups, in place."""

@@ -43,6 +43,7 @@ from ..fields import bitsliced
 from ..fields import tower_scalar as ts
 from ..layout.bitslicing import repeat_value_bitsliced
 from ..utils.bits import lsr
+from ..utils.timing import span
 
 __all__ = ["HEIGHT", "W", "MAX_COMPOSITION", "challenge_words",
            "round_plain", "round_kernel", "fold_plain", "fold_kernel"]
@@ -183,25 +184,27 @@ def round_kernel(evals: torch.Tensor, rows: int, num_points: int,
 
     Returns (1 + num_points, 128) int32 batch sums [total, p0, p1, ...] on
     the device of evals.  The kernel takes num_points = C + 1 (the degree
-    of the protocol's round polynomial) and C <= MAX_COMPOSITION.
+    of the protocol's round polynomial) and C <= MAX_COMPOSITION.  Each
+    call is a ``sumcheck.round_launch`` span (utils/timing.py, host clock).
     """
-    if evals.device.type == "cpu":
-        return round_plain(evals, rows, num_points, lanes)
-    _check_card("round_kernel", evals)
-    c = _check_evals("round_kernel", evals, rows, lanes, 1)
-    if not 2 <= c <= MAX_COMPOSITION or num_points != c + 1:
-        raise ValueError(f"round_kernel: takes 2 <= C <= {MAX_COMPOSITION} "
-                         f"and num_points = C + 1, got C={c}, "
-                         f"num_points={num_points}")
-    masks = _fold_masks(num_points)
-    masks_c = (ctypes.c_uint32 * len(masks))(*masks)
-    out = torch.zeros((1 + num_points, W), dtype=torch.int32,
-                      device=evals.device)
-    lib = _build.library()
-    with torch.cuda.device(evals.device):
-        rc = lib.bntt_sumcheck_round(
-            evals.data_ptr(), out.data_ptr(), c, evals.shape[1], rows,
-            lanes, masks_c, torch.cuda.current_stream().cuda_stream)
+    with span("sumcheck.round_launch"):
+        if evals.device.type == "cpu":
+            return round_plain(evals, rows, num_points, lanes)
+        _check_card("round_kernel", evals)
+        c = _check_evals("round_kernel", evals, rows, lanes, 1)
+        if not 2 <= c <= MAX_COMPOSITION or num_points != c + 1:
+            raise ValueError(f"round_kernel: takes 2 <= C <= "
+                             f"{MAX_COMPOSITION} and num_points = C + 1, "
+                             f"got C={c}, num_points={num_points}")
+        masks = _fold_masks(num_points)
+        masks_c = (ctypes.c_uint32 * len(masks))(*masks)
+        out = torch.zeros((1 + num_points, W), dtype=torch.int32,
+                          device=evals.device)
+        lib = _build.library()
+        with torch.cuda.device(evals.device):
+            rc = lib.bntt_sumcheck_round(
+                evals.data_ptr(), out.data_ptr(), c, evals.shape[1], rows,
+                lanes, masks_c, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "sumcheck_round")
     round_kernel.launches += 1
     return out

@@ -26,6 +26,13 @@ lanes inside batch 0: the reference CUDA prover moves them to the host
 numpy but multiplies on the accelerator.  Here both kernels take these
 in-word rounds (``lanes``), so the state never leaves its device; each
 round reads back only its (1 + P, 128) batch sums.
+
+Spans (utils/timing.py, when on; host clock): ``sumcheck.round_messages``,
+in it the round kernel's launch (``sumcheck.round_launch``, in
+cuda_round.py), ``sumcheck.readback`` (the copy of the batch sums to the
+host, which waits for the kernels before it) and ``sumcheck.message_sum``
+(their XOR on the host); ``sumcheck.fold_launch`` over
+``move_to_next_round``.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import torch
 from ..layout.bitslicing import bitslice_transpose, bitslice_untranspose
 from ..utils.bits import to_numpy, to_torch
 from ..utils.capabilities import default_device
+from ..utils.timing import span
 from . import cuda_round
 
 __all__ = ["Sumcheck"]
@@ -50,9 +58,10 @@ def _compute_sum(batch: torch.Tensor) -> np.ndarray:
     (..., 4) uint32 words (cf. compute_sum, sumcheck/core/core.cu:84-96).
     The kernels zero the dead lanes of an in-word round, so every round
     sums all 32."""
-    words = to_numpy(bitslice_untranspose(batch))
-    values = words.reshape(words.shape[:-1] + (-1, INTS_PER_VALUE))
-    return np.bitwise_xor.reduce(values, axis=-2)
+    with span("sumcheck.message_sum"):
+        words = to_numpy(bitslice_untranspose(batch))
+        values = words.reshape(words.shape[:-1] + (-1, INTS_PER_VALUE))
+        return np.bitwise_xor.reduce(values, axis=-2)
 
 
 def _as_words(a, device) -> torch.Tensor:
@@ -190,16 +199,20 @@ class Sumcheck:
 
     def round_messages(self):
         """Returns (sum, points): sum (4,) uint32 words; points (P, 4)."""
-        rows, lanes = self._live()
-        parts = cuda_round.round_kernel(self._evals, rows, self.num_points,
-                                        lanes).cpu()
-        sums = _compute_sum(parts)
-        return sums[0], sums[1:]
+        with span("sumcheck.round_messages"):
+            rows, lanes = self._live()
+            parts = cuda_round.round_kernel(self._evals, rows,
+                                            self.num_points, lanes)
+            with span("sumcheck.readback"):
+                parts = parts.cpu()
+            sums = _compute_sum(parts)
+            return sums[0], sums[1:]
 
     def move_to_next_round(self, challenge):
         """Fold every column at the challenge: 4 words (uint32 or int32)
         of a little-endian 128-bit value."""
-        rows, lanes = self._live()
-        cuda_round.fold_kernel(self._evals, cuda_round.challenge_words(
-            challenge), rows, lanes)
-        self.round += 1
+        with span("sumcheck.fold_launch"):
+            rows, lanes = self._live()
+            cuda_round.fold_kernel(self._evals, cuda_round.challenge_words(
+                challenge), rows, lanes)
+            self.round += 1
