@@ -49,6 +49,8 @@ _SIGNATURES = {
     "bntt_butterfly_high": (_P, _P, _L, _I, _I, _P),
     "bntt_butterfly_low": (_P, _P, _P, _L, _I, _I, _P),
     "bntt_mul_compact": (_P, _P, _P, _L, _I, _P),
+    "bntt_bitslice128_transpose": (_P, _P, _L, _P),
+    "bntt_bitslice128_untranspose": (_P, _P, _L, _P),
 }
 
 _lib = None

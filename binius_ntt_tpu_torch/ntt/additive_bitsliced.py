@@ -26,9 +26,12 @@ expand them.  Each stage's route (``cuda_kernels.high_subfield`` and
 ``low_subfield``: its twiddles lie in GF(2^32)) is decided once, when the
 tables are made.
 
-Capacity route of ``apply``: the whole-array layout transforms make
-several array-sized temporaries (layout/bitslicing.py), so where the peak
-they would reach (:func:`whole_array_peak`, from a factor measured on the
+Layout of ``apply``: the input is transposed into a new sliced tensor,
+and the chain's output untransposed in its own buffer (in place, by the
+kernel of csrc/bitslice128.cu on the card).  Capacity route of ``apply``:
+the torch ops of the whole-array layout transforms make several
+array-sized temporaries (layout/bitslicing.py), so where the peak they
+would reach (:func:`whole_array_peak`, from a factor measured on the
 card) passes the device's budget (:func:`capacity_budget`), ``apply``
 transposes and untransposes in chunks of rows instead
 (:func:`streams`).  The reference's gate (a fixed 14e9 bytes, sized for a
@@ -73,7 +76,10 @@ IPV = W // 32              # 4 words per compact value
 # larger of its input and output buffers.  Measured 4.500 at 2^24, 2^26,
 # 2^27 and 2^28 r0 and at 2^26 r2, and 4.50 at 2^29 r0
 # (tools/torch_capacity.py --checks peaks and chip_smoke.py phase 26, on an
-# NVIDIA H100 80GB HBM3 at a 700.00 W power limit).
+# NVIDIA H100 80GB HBM3 at a 700.00 W power limit), with the layout's
+# torch ops; the card's layout kernel (csrc/bitslice128.cu) makes no
+# temporaries, so the factor is now above the peak (chip_smoke.py prints
+# the peak of the 2^24 rate-2 apply beside it).
 WHOLE_ARRAY_PEAK_FACTOR = 4.5
 # Rows of a chunk on the capacity route (128 MiB of words).
 STREAM_CHUNK_ROWS = CHUNK_ROWS
@@ -360,15 +366,15 @@ class AdditiveNTT128(torch.nn.Module):
         out = self.apply_sliced(sliced)
         del sliced
         with span("ntt.layout_out", device):
-            return bitslice_untranspose(out).reshape(-1)
+            return bitslice_untranspose(out, out=out).reshape(-1)
 
     def _apply_streamed(self, x: torch.Tensor) -> torch.Tensor:
         """The capacity route: x (2^log_h/32, 128) unbitsliced rows, on
         the host or the device, is uploaded and transposed chunk by chunk
         into the sliced input; the sliced input is dropped once the
         transform has run; the output is untransposed chunk by chunk in its
-        own buffer (each row is its own 32 x 128 transpose), so no second
-        output-sized tensor is made."""
+        own buffer (each row is its own 32 x 128 transpose, in place on the
+        card), so no second output-sized tensor is made."""
         device = self.device
         with span("ntt.layout_in", device):
             sliced = bitslice_transpose_streamed(x, STREAM_CHUNK_ROWS,
@@ -378,5 +384,5 @@ class AdditiveNTT128(torch.nn.Module):
         with span("ntt.layout_out", device):
             chunk = _pick_chunk(out.shape[0], STREAM_CHUNK_ROWS)
             for i in range(0, out.shape[0], chunk):
-                out[i:i + chunk] = bitslice_untranspose(out[i:i + chunk])
+                bitslice_untranspose(out[i:i + chunk], out=out[i:i + chunk])
             return out.reshape(-1)

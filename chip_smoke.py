@@ -12,8 +12,9 @@ run with a non-zero exit and no result line:
      then the stack frame, spills and registers of the sumcheck kernels,
      of every butterfly_high_kernel, butterfly_low_kernel,
      stage_group32_kernel and mul_compact_kernel instantiation and of
-     stage_group_r2_kernel, bitslice_lane_groups_kernel and
-     mul_tiles_kernel as ptxas reports them, a line each;
+     stage_group_r2_kernel, bitslice_lane_groups_kernel,
+     mul_tiles_kernel and the two bitslice128 kernels as ptxas reports
+     them, a line each;
   3. mul_tiles   — (on the sharded path of phase 24) kernel vs its plain
      torch version on the card at 2^18 + 5
      rows (a partial last tile), 2^18 and 2^19 rows, word-equal; then the
@@ -28,7 +29,8 @@ run with a non-zero exit and no result line:
   5. main path — AdditiveNTT128(24, r).apply on mt19937 input for r = 0, 2,
      held to the native oracle's golden MD5 digests, with every launch
      counter reset just before and read just after; every group must take
-     the CHUNK32 route, and the launches per route are printed;
+     the CHUNK32 route, and the launches per route are printed; each
+     apply launches the layout kernel once each way;
   6. timing   — stage groups at 2^24, rates 0 and 2: first the kernel vs
      plain, group by group on the chain's input, at the main path's shapes;
      then with CUDA events the kernel on its CHUNK32 route (the chain and
@@ -171,7 +173,16 @@ run with a non-zero exit and no result line:
      output); then the same input through the streamed transforms
      (bitslice_transpose_streamed, apply_sliced,
      bitslice_untranspose_streamed), word-equal to apply's output chunk by
-     chunk; a PhaseTimer report (input, apply, hash, streamed, compare).
+     chunk; a PhaseTimer report (input, apply, hash, streamed, compare);
+ 27. bitslice128 — the GF(2^128) layout kernel (csrc/bitslice128.cu) on
+     2^19 and 2^21 random rows (the 2^24 input's and the rate-2 output's):
+     bitslice_transpose and bitslice_untranspose (out of place and in
+     place) held word-equal to their torch ops, then each timed with CUDA
+     events (one call, and a call in a run of 10 back to back) beside the
+     torch ops and the bound; then AdditiveNTT128(24, 2).apply from host
+     words with its peak device memory (max_memory_allocated over the
+     call) beside the capacity gate's WHOLE_ARRAY_PEAK_FACTOR, printed
+     and not acted on.
 
 Then three lines: the kernels as JSON, the card's name and power limit
 from nvidia-smi, and the result line
@@ -218,8 +229,9 @@ from binius_ntt_tpu_torch.fields import baby_bear as bb  # noqa: E402
 from binius_ntt_tpu_torch.fields import tower_compact as tc  # noqa: E402
 from binius_ntt_tpu_torch.fields import tower_scalar as ts  # noqa: E402
 from binius_ntt_tpu_torch.layout.bitslicing import (  # noqa: E402
-    bitslice_transpose, bitslice_transpose_streamed, bitslice_untranspose,
-    bitslice_untranspose_streamed)
+    bitslice_transpose, bitslice_transpose_plain,
+    bitslice_transpose_streamed, bitslice_untranspose,
+    bitslice_untranspose_plain, bitslice_untranspose_streamed)
 from binius_ntt_tpu_torch.ntt import additive_bitsliced as ab  # noqa: E402
 from binius_ntt_tpu_torch.ntt import cuda_fused as cf  # noqa: E402
 from binius_ntt_tpu_torch.ntt import cuda_fused32 as cf32  # noqa: E402
@@ -267,7 +279,8 @@ EARLIER_CHAIN_MS = {0: 3.418, 2: 13.611}
 COUNTED = (ck.mul_tiles, cf.stage_group, cr.round_kernel, cr.fold_kernel,
            cf32.bitslice_lane_groups, cf32.stage_group32, cfb.stage_group_r2,
            cpr.round_kernel, cpr.fold_kernel, ck.butterfly_high,
-           ck.butterfly_low, tc.mul_compact_tiles)
+           ck.butterfly_low, tc.mul_compact_tiles, bitslice_transpose,
+           bitslice_untranspose)
 # ptxas's entry names of the GF(2^128) sumcheck kernels: a template's name
 # with the start of its mangled arguments (ILb0E: the fold's <false>, row
 # folds; ILb1E: <true>, in-word folds)
@@ -290,6 +303,8 @@ MUL_COMPACT_KERNELS = tuple(f"mul_compact_kernelILi{h}E" for h in (5, 6, 7))
 STAGE_GROUP_KERNELS = tuple(f"stage_group_kernelILb{c}ELb{d}E"
                             for c in (1, 0) for d in (0, 1))
 LANES_KERNEL = "bitslice_lane_groups_kernel"
+LAYOUT_KERNELS = ("bitslice128_transpose_kernel",
+                  "bitslice128_untranspose_kernel")
 MUL_TILES_KERNEL = "mul_tiles_kernel"
 
 # The card's peaks for bound_ms (data-sheet estimates at 1.98 GHz): integer
@@ -491,7 +506,8 @@ def phase_build() -> None:
                  + BUTTERFLY_HIGH_KERNELS
                  + BUTTERFLY_LOW_KERNELS + STAGE_GROUP32_KERNELS
                  + ("stage_group_r2_kernel", LANES_KERNEL)
-                 + MUL_COMPACT_KERNELS + (MUL_TILES_KERNEL,)):
+                 + MUL_COMPACT_KERNELS + (MUL_TILES_KERNEL,)
+                 + LAYOUT_KERNELS):
         say("build", f"{name}: ptxas "
             f"{_build.kernel_usage(name) or 'not reported'}")
 
@@ -662,7 +678,9 @@ def phase_main_path(dev, golden):
         torch.cuda.synchronize()
         outs.append((log_rate, out, time.perf_counter() - t1))
     launches = {"stage_group": cf.stage_group.launches,
-                "mul_tiles": ck.mul_tiles.launches}
+                "mul_tiles": ck.mul_tiles.launches,
+                "bitslice_transpose": bitslice_transpose.launches,
+                "bitslice_untranspose": bitslice_untranspose.launches}
     routes = dict(cf.stage_group.route_launches)
 
     for log_rate, out, sec in outs:
@@ -676,6 +694,10 @@ def phase_main_path(dev, golden):
             f"{digest} matches; {sec:.3f} s host clock incl. upload and "
             f"layout")
     require(launches["stage_group"] > 0, "stage_group never launched")
+    require(launches["bitslice_transpose"] == len(runs)
+            and launches["bitslice_untranspose"] == len(runs),
+            f"each apply must launch the layout kernel once each way: "
+            f"{launches}")
     require(all(chunk32 for _, ntt, _ in runs
                 for *_, chunk32 in ntt.tables)
             and routes == {"chunk32": launches["stage_group"], "general": 0},
@@ -2187,6 +2209,73 @@ def phase_capacity(dev, golden, log_h: int = 28, log_rate: int = 2) -> dict:
                 k: v * 1e3 for k, v in timer.phases.items()}}
 
 
+def phase_bitslice128(dev, log_h: int = 24, log_rate: int = 2) -> dict:
+    """The layout kernel both ways against its torch ops and its bound,
+    then the peak device memory of the compact apply."""
+    rng = np.random.default_rng(SEED + 128)
+    out = {"err": 0, "by_rows": {}}
+    for log_rows in (19, 21):
+        x = to_torch(rng.integers(0, 1 << 32, (1 << log_rows, W),
+                                  dtype=np.uint32), dev)
+        row = {}
+        for name, fn, plain in (
+                ("transpose", bitslice_transpose, bitslice_transpose_plain),
+                ("untranspose", bitslice_untranspose,
+                 bitslice_untranspose_plain)):
+            want = plain(x)
+            err = max_abs_err(fn(x), want)
+            if name == "untranspose":
+                buf = x.clone()
+                err = max(err, max_abs_err(fn(buf, out=buf), want))
+                del buf
+            require(err == 0, f"bitslice_{name} on 2^{log_rows} random rows "
+                    f"differs from its torch ops ({err})")
+            del want
+            out["err"] = max(out["err"], err)
+            t = {"ms": device_time(fn, x) * 1e3,
+                 "run_ms": run_time(fn, x) * 1e3,
+                 "plain_ms": device_time(plain, x, warmup=1, reps=3) * 1e3,
+                 **bound(x.numel() * TRANSPOSE32_OPS / 32,
+                         2 * x.numel() * 4)}
+            if name == "untranspose":
+                t["in_place_ms"] = device_time(lambda: fn(x, out=x)) * 1e3
+            row[name] = t
+            say("bitslice128", f"bitslice_{name} on 2^{log_rows} rows "
+                f"({x.numel() * 4 >> 20} MB) word-equal to its torch ops "
+                f"(max_abs_err 0, tolerance exact): kernel {t['ms']:.4f} ms "
+                f"a call, {t['run_ms']:.4f} ms a call back to back"
+                + (f", in place {t['in_place_ms']:.4f} ms"
+                   if "in_place_ms" in t else "")
+                + f", torch ops {t['plain_ms']:.3f} ms, bound "
+                f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
+                f"({t['bound_ms'] / t['ms']:.0%} and "
+                f"{t['bound_ms'] / t['run_ms']:.0%} of it)")
+        out["by_rows"][f"2^{log_rows}"] = row
+        del x
+    # the compact apply's peak, from host words as the capacity gate's
+    # factor was measured
+    ntt = AdditiveNTT128(log_h, log_rate, device=dev)
+    words = mt19937_stream(SEED + log_h + log_rate, (1 << log_h) * 4)
+    ntt.apply(words)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = ntt.apply(words)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    largest = 16 << (log_h + log_rate)
+    out.update(peak_bytes=peak, peak_factor=peak / largest,
+               gate_peak_bytes=ab.whole_array_peak(log_h, log_rate))
+    say("bitslice128", f"AdditiveNTT128({log_h}, {log_rate}).apply from host "
+        f"words: peak {peak / 2**30:.3f} GiB over the call, "
+        f"{out['peak_factor']:.3f} x its output's {largest / 2**30:.0f} GiB; "
+        f"the capacity gate assumes WHOLE_ARRAY_PEAK_FACTOR "
+        f"{ab.WHOLE_ARRAY_PEAK_FACTOR} ({out['gate_peak_bytes'] / 2**30:.2f} "
+        f"GiB; recorded, not acted on)")
+    del res, ntt
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an sm_90 "
@@ -2246,6 +2335,7 @@ def main() -> int:
     t26 = time.perf_counter()
     cap = phase_capacity(dev, golden)
     say("capacity", f"phase 26 took {time.perf_counter() - t26:.1f} s")
+    layout = phase_bitslice128(dev)
 
     # bounds of the earlier kernels, from the shapes of their timed calls:
     # 2^24 points (rate 0) for the NTT chains, the sumcheck's first round
@@ -2380,6 +2470,19 @@ def main() -> int:
                       "by_rows has 2^19 rows too",
              "by_rows": {f"2^{k}": v for k, v in n32_timing["lanes"].items()},
              **n32_timing["lanes"][17]},
+            {"name": "bitslice128", "route": "cuda",
+             "source": "binius_ntt_tpu_torch/csrc/bitslice128.cu",
+             "replaces": None,
+             "launches": {k: launches[k] for k in (
+                 "bitslice_transpose", "bitslice_untranspose")},
+             "max_abs_err": layout["err"],
+             "shape": "2^21 rows of 128 words (the 2^24 rate-2 output), "
+                      "untranspose; by_rows has both ways at 2^19 and 2^21",
+             "by_rows": layout["by_rows"],
+             "apply_peak_bytes": layout["peak_bytes"],
+             "apply_peak_factor": layout["peak_factor"],
+             **{k: layout["by_rows"]["2^21"]["untranspose"][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
             {"name": "stage_group32", "route": "cuda",
              "source": "binius_ntt_tpu_torch/csrc/stage_group32.cu",
              "replaces": "binius_ntt_tpu/ntt/pallas_fused32.py:400",

@@ -28,9 +28,9 @@ from binius_ntt_tpu_torch import (AdditiveNTT, AdditiveNTT128, NTTRadix2,
 from binius_ntt_tpu_torch.fields import baby_bear as bb
 from binius_ntt_tpu_torch.fields import tower_scalar
 from binius_ntt_tpu_torch.layout.bitslicing import (
-    bitslice_transpose, bitslice_transpose_streamed,
+    bitslice_transpose, bitslice_transpose_plain, bitslice_transpose_streamed,
     bitslice_transpose_streamed_cols, bitslice_untranspose,
-    bitslice_untranspose_streamed)
+    bitslice_untranspose_plain, bitslice_untranspose_streamed)
 from binius_ntt_tpu_torch.ntt import additive_bitsliced as ab
 from binius_ntt_tpu_torch.ntt import cuda_fused as cf
 from binius_ntt_tpu_torch.ntt import cuda_fused32 as cf32
@@ -963,3 +963,110 @@ def test_forced_capacity_route_golden_on_card(dev, monkeypatch, fused,
     assert out.shape == ((1 << (16 + log_rate)) * 4,)
     digest = hashlib.md5(to_numpy(out).astype("<u4").tobytes()).hexdigest()
     assert digest == ADDITIVE_NTT128_HASHES[log_rate][16]
+
+
+def _layout_launches():
+    return (bitslice_transpose.launches, bitslice_untranspose.launches)
+
+
+@pytest.mark.parametrize("rows", [1, 33, 1 << 17])
+def test_bitslice128_kernel_matches_plain(dev, rows):
+    """csrc/bitslice128.cu both ways against the torch ops, one launch
+    each, and the round trip."""
+    x = _rand(40 + rows, (rows, 128), dev)
+    t0, u0 = _layout_launches()
+    sliced = bitslice_transpose(x)
+    back = bitslice_untranspose(sliced)
+    torch.cuda.synchronize()
+    assert _layout_launches() == (t0 + 1, u0 + 1)
+    assert torch.equal(sliced, bitslice_transpose_plain(x))
+    assert torch.equal(bitslice_untranspose(x), bitslice_untranspose_plain(x))
+    assert torch.equal(back, x)
+
+
+def test_bitslice128_takes_lead_shapes_and_views(dev):
+    """A (C, B, 128) tensor, a view one word into a buffer and a strided
+    view: word-equal to the torch ops, the input left as it is."""
+    cols = _rand(41, (3, 5, 128), dev)
+    keep = cols.clone()
+    assert torch.equal(bitslice_transpose(cols),
+                       bitslice_transpose_plain(cols))
+    assert torch.equal(bitslice_untranspose(cols),
+                       bitslice_untranspose_plain(cols))
+    assert torch.equal(cols, keep)
+    flat = _rand(42, (1 + 7 * 128,), dev)
+    rows = flat[1:].view(7, 128)
+    assert rows.is_contiguous() and rows.data_ptr() % 16 == 4
+    strided = _rand(43, (14, 128), dev)[::2]
+    for view in (rows, strided):
+        assert torch.equal(bitslice_transpose(view),
+                           bitslice_transpose_plain(view))
+        assert torch.equal(bitslice_untranspose(view),
+                           bitslice_untranspose_plain(view))
+
+
+def test_bitslice128_untranspose_in_place(dev):
+    """out=x untransposes in x's own memory; into a misaligned view of
+    itself, or into a buffer that overlaps it a row off, goes through a
+    copy; every result word-equal to the torch ops."""
+    x = _rand(44, (1 << 12, 128), dev)
+    want = bitslice_untranspose_plain(x)
+    buf = x.clone()
+    ptr = buf.data_ptr()
+    got = bitslice_untranspose(buf, out=buf)
+    assert got is buf and buf.data_ptr() == ptr and torch.equal(buf, want)
+    flat = torch.empty(1 + 9 * 128, dtype=torch.int32, device=dev)
+    view = flat[1:].view(9, 128)
+    view.copy_(x[:9])
+    bitslice_untranspose(view, out=view)
+    assert torch.equal(view, want[:9])
+    shared = torch.empty(10 * 128, dtype=torch.int32, device=dev)
+    src, dst = shared[:9 * 128].view(9, 128), shared[128:].view(9, 128)
+    src.copy_(x[:9])
+    bitslice_untranspose(src, out=dst)
+    assert torch.equal(dst, want[:9])
+
+
+def test_bitslice128_entries_refuse_what_they_do_not_take(dev):
+    """The C entries: a pointer off 16 bytes, a partial row, buffers that
+    overlap (the untranspose takes src == dst)."""
+    x = _rand(45, (4 * 128 + 4,), dev)
+    out = torch.zeros(4 * 128 + 4, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = _build.library()
+    p, q = x.data_ptr(), out.data_ptr()
+    for entry in (lib.bntt_bitslice128_transpose,
+                  lib.bntt_bitslice128_untranspose):
+        for args in ((p + 4, q, 256), (p, q + 8, 256), (p, q, 200),
+                     (p, q, 0), (p, p + 512, 256)):
+            assert entry(*args, stream) == 1    # cudaErrorInvalidValue
+    assert lib.bntt_bitslice128_transpose(p, p, 256, stream) == 1
+    torch.cuda.synchronize()
+    assert not out.any()
+    assert lib.bntt_bitslice128_untranspose(p, p, 256, stream) == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("log_rate", [0, 2])
+def test_compact_apply_launches_the_layout_kernel_once_each_way(dev,
+                                                                log_rate):
+    ntt = AdditiveNTT128(16, log_rate, device=dev)
+    words = to_torch(_words(16, log_rate), dev)
+    t0, u0 = _layout_launches()
+    out = ntt.apply(words)
+    assert _layout_launches() == (t0 + 1, u0 + 1)
+    assert _md5(out) == ADDITIVE_NTT128_HASHES[log_rate][16]
+
+
+def test_capacity_route_matches_the_whole_array_route(dev, monkeypatch):
+    """_apply_streamed at a forced 256-row chunk: the whole-array route's
+    words, the untranspose in place a chunk a launch."""
+    words = to_torch(_words(16, 2), dev)
+    ntt = AdditiveNTT128(16, 2, device=dev)
+    whole = ntt.apply(words)
+    monkeypatch.setattr(ab, "STREAM_CHUNK_ROWS", 256)
+    t0, u0 = _layout_launches()
+    got = ntt._apply_streamed(words.view(-1, 128))
+    chunks = (1 << 18) // 32 // 256
+    assert _layout_launches() == (t0 + (1 << 16) // 32 // 256, u0 + chunks)
+    assert torch.equal(got, whole)
