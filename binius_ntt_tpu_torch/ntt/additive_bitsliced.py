@@ -37,10 +37,19 @@ transposes and untransposes in chunks of rows instead
 (:func:`streams`).  The reference's gate (a fixed 14e9 bytes, sized for a
 15.75 GB TPU) is not carried over.
 
+Batches: ``apply_sliced`` also takes (B, nb, 128), B independent columns
+(Binius's NTTShape log_z), copied once into one (B * cosets, nb, 128)
+buffer; the fused path runs each stage group once over all of them (the
+column bits lie above every bit the groups' instance masks read, so the
+tables serve unchanged), the per-stage path runs its stages column by
+column.  ``apply`` keeps one column a call.
+
 Spans (utils/timing.py, when on): ``ntt.apply`` over ``apply``, in it
 ``ntt.layout_in`` (the transpose in, with its move to the device),
-``ntt.chain`` (``apply_sliced``'s kernels) and ``ntt.layout_out`` (the
-transpose out); ``setup.tables`` over the host tables' build.
+``ntt.chain`` (``apply_sliced``'s kernels, with its ``columns`` as an
+attribute and a count; in it ``ntt.coset_copy``, the copy into the
+working buffer) and ``ntt.layout_out`` (the transpose out);
+``setup.tables`` over the host tables' build.
 
 Not ported: ``use_pallas`` (the tensor's device picks kernel or plain
 version).
@@ -201,18 +210,22 @@ def per_stage_steps(high, low_batch, low_lanes, *, nb: int, log_rate: int,
 def apply_per_stage(data, high, low_batch, low_lanes, *, log_rate: int,
                     chunk32: dict | None = None):
     """Per-stage transform (the reference's ``_apply128``): data (nb, 128)
-    bit-sliced -> (cosets * nb, 128).
+    bit-sliced -> (cosets * nb, 128), or a batch (B, nb, 128) of columns ->
+    (B, cosets * nb, 128).
 
-    The input is copied once per coset into a fresh working buffer, which
-    every stage updates in place; ``data`` itself is not modified.  Each
-    stage launches its kernel on a CUDA tensor and runs the plain version on
-    the CPU.  ``chunk32`` as in :func:`per_stage_steps`.
+    The input is copied once per coset into a fresh working buffer
+    (``cuda_fused.coset_copy``), which every stage updates in place,
+    column by column; ``data`` itself is not modified.  Each stage
+    launches its kernel on a CUDA tensor and runs the plain version on the
+    CPU.  ``chunk32`` as in :func:`per_stage_steps`.
     """
-    x = data.repeat(1 << log_rate, 1)
-    for _, kernel, _, args in per_stage_steps(
-            high, low_batch, low_lanes, nb=data.shape[0], log_rate=log_rate,
-            chunk32=chunk32):
-        kernel(x, *args)
+    x = cuda_fused.coset_copy(data, log_rate)
+    steps = list(per_stage_steps(high, low_batch, low_lanes,
+                                 nb=data.shape[-2], log_rate=log_rate,
+                                 chunk32=chunk32))
+    for column in (x if x.dim() == 3 else (x,)):
+        for _, kernel, _, args in steps:
+            kernel(column, *args)
     return x
 
 
@@ -312,17 +325,24 @@ class AdditiveNTT128(torch.nn.Module):
                                chunk32=self.chunk32)
 
     def apply_sliced(self, data: torch.Tensor) -> torch.Tensor:
-        """data: (2^log_h/32, 128) int32 bit-sliced IN_ORDER input on the
-        module's device, left unchanged.  Returns (2^(log_h+log_rate)/32,
-        128)."""
+        """data: one column, (2^log_h/32, 128) int32 bit-sliced IN_ORDER
+        input, or a batch of B >= 1 independent columns, (B, 2^log_h/32,
+        128), on the module's device, left unchanged.  Returns
+        (2^(log_h+log_rate)/32, 128), or (B, 2^(log_h+log_rate)/32, 128)
+        whose column b is the transform of data[b] (each contiguous).  A
+        batch runs each stage group once over all of its columns."""
         nb = (1 << self.log_h) // 32
-        if (data.dtype != torch.int32 or tuple(data.shape) != (nb, W)
+        shape = tuple(data.shape)
+        if (data.dtype != torch.int32 or shape[-2:] != (nb, W)
+                or len(shape) not in (2, 3) or 0 in shape
                 or data.device != self.device):
             raise ValueError(
-                f"apply_sliced: expected ({nb}, {W}) int32 on "
-                f"{self.device}, got {tuple(data.shape)} {data.dtype} on "
+                f"apply_sliced: expected ({nb}, {W}) or (B, {nb}, {W}) "
+                f"int32 on {self.device}, got {shape} {data.dtype} on "
                 f"{data.device}")
-        with span("ntt.chain", data.device):
+        columns = shape[0] if len(shape) == 3 else 1
+        with span("ntt.chain", data.device, columns=columns) as chain:
+            chain.add("columns", columns)
             if self.use_fused:
                 return cuda_fused.apply_fused(data.contiguous(), self.tables,
                                               log_rate=self.log_rate)

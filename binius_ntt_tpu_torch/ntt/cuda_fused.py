@@ -54,7 +54,7 @@ __all__ = ["KB", "KU", "PT", "SUB_PLANES", "plan_groups",
            "make_group_tables", "make_group_tables_sharded",
            "subfield_tables", "build_tables", "build_tables_sharded",
            "chunk32_cols", "stage_group",
-           "stage_group_plain", "apply_fused"]
+           "stage_group_plain", "coset_copy", "apply_fused"]
 
 HEIGHT = 7
 W = 1 << HEIGHT
@@ -445,20 +445,31 @@ stage_group.route_launches = {"chunk32": 0, "general": 0}
 stage_group.dplanes_launches = 0
 
 
+def coset_copy(data, log_rate: int):
+    """The transform's in-place working buffer: data (..., nb, 128), one
+    column or a batch, copied once per coset into a fresh (..., cosets*nb,
+    128) tensor (the stages work in place, so a broadcast view would
+    alias the cosets), in an ``ntt.coset_copy`` span."""
+    with span("ntt.coset_copy", data.device):
+        return data.repeat(*(1,) * (data.dim() - 2), 1 << log_rate, 1)
+
+
 def apply_fused(data, tables, *, log_rate: int):
-    """Full transform: data (nb, 128) bit-sliced -> (cosets*nb, 128).
+    """Full transform: data (nb, 128) bit-sliced -> (cosets*nb, 128), or a
+    batch of B columns (B, nb, 128) -> (B, cosets*nb, 128).
 
     tables: build_tables() output, top group first (DIT: high stages
-    first).  The input is copied once per coset into a fresh tensor (the
-    groups work in place, so a broadcast view would alias the cosets);
-    ``data`` itself is not modified.
+    first).  The input is copied into a fresh tensor (:func:`coset_copy`);
+    ``data`` itself is not modified.  A batch is one (B * cosets, nb, 128)
+    tensor, and each group one launch over it: its instance q = (b cosets
+    + coset) pre + p puts the column b above the bits the minst masks
+    read, so column b's twiddles are column 0's.
     """
-    nb = data.shape[0]
-    cosets = 1 << log_rate
-    x = data.repeat(cosets, 1).view(cosets, nb, W)
+    x = coset_copy(data, log_rate)
+    groups = x.view(-1, data.shape[-2], W)
     for (t0, k, include_low, mtile, minst, lanes, zero_flags,
          chunk32) in tables:
-        stage_group(x, mtile, minst, lanes, t0=t0, k=k,
+        stage_group(groups, mtile, minst, lanes, t0=t0, k=k,
                     include_low=include_low, zero_flags=zero_flags,
                     chunk32=chunk32)
-    return x.view(cosets * nb, W)
+    return x

@@ -76,6 +76,7 @@ def test_off_returns_one_null_span_and_touches_no_event_or_range(
         s.add("x", 5)
     ntt = AdditiveNTT128(8, 2, device="cpu")
     ntt.apply(_words(4 << 8, 1))
+    ntt.apply_sliced(_words(3 << 10, 2).view(3, 8, 128))
     assert span_records() == []
 
 
@@ -218,7 +219,40 @@ def test_ntt128_apply_sliced_opens_only_the_chain(spans_on):
     x = _words(4 << 8, 12).view(-1, 128)
     ntt.apply_sliced(x)
     names = {r["name"] for r in span_records()}
-    assert names == {"ntt.chain", "ntt.stage_group"}
+    assert names == {"ntt.chain", "ntt.coset_copy", "ntt.stage_group"}
+
+
+@pytest.mark.parametrize("use_fused", [True, False])
+@pytest.mark.parametrize("columns", [1, 3])
+def test_ntt128_chain_counts_columns_and_holds_the_copy(spans_on, use_fused,
+                                                        columns):
+    """``ntt.chain`` carries its columns as an attribute and a count, and
+    the one ``ntt.coset_copy`` of the call opens inside it, before the
+    chain's kernels, on both routes; the words are those of a run with
+    the spans off."""
+    ntt = AdditiveNTT128(7, 1, use_fused=use_fused, device="cpu")
+    x = _words(columns << 9, 15).view(columns, 4, 128)
+    if columns == 1:
+        x = x[0]
+    enable_spans(False)
+    plain = ntt.apply_sliced(x)
+    enable_spans(True)
+    span_records()
+    set_request(5)
+    assert torch.equal(ntt.apply_sliced(x), plain)
+    recs = span_records()
+    byname = _by_name(recs)
+    (chain,) = byname["ntt.chain"]
+    (copy,) = byname["ntt.coset_copy"]
+    assert chain["parent"] is None and chain["request"] == 5
+    assert chain["attrs"] == {"columns": columns}
+    assert chain["counts"] == {"columns": columns}
+    assert copy["parent"] == chain["id"] and copy["request"] == 5
+    assert copy["device_clock"] == "host"
+    inside = [r["name"] for r in recs if r["parent"] == chain["id"]]
+    assert inside[0] == "ntt.coset_copy"
+    assert set(inside) == ({"ntt.coset_copy", "ntt.stage_group"}
+                           if use_fused else {"ntt.coset_copy"})
 
 
 def _transcript(prover, rounds, seed):
